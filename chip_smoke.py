@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU and
+check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, one JSON line each:
+  build    compile every CUDA kernel of the port from ``csrc/`` (one nvcc
+           per source, all started together) and read the card's name and
+           power limit from nvidia-smi.
+  kernels  each kernel against its plain PyTorch version on the card at
+           llama3.2-1b FULL widths (B=16, Hkv=8, G=4, D=64, page=16,
+           ragged kv_len in 0..2048 with one zero), bf16 and f32, with and
+           without a window; then bf16 CUDA-event times (median of 30 after
+           warm-up, L2 flushed before each launch) beside the bound, the
+           plain version and one library call, at those lengths and at the
+           serving phase's (32..544 rows in a 64-page table).
+  smoke    llama3.2-1b SMOKE at f32: prefill + ragged decode logits of the
+           kernel path on the card against the plain path on the CPU, and
+           the paged batcher's tokens on the card against the CPU's.
+  serve    the main path: llama3.2-1b FULL (16 layers, seeded random bf16
+           weights) behind ContinuousBatcher(slots=16, max_len=1024,
+           page 16) on 32 requests (prompts of 32-512 tokens, 32 new tokens
+           each).  The launch counters are zeroed just before the run and
+           read just after; each must equal decode ticks x 16 layers.
+           Then one decode step's logits, kernel path against plain path.
+  profile  the same serving run again under torch.profiler: device time
+           of each kernel, the decode kernel's HBM bandwidth, the device's
+           busy share.
+Then the per-kernel JSON line, the nvidia-smi line, and the result line.
+Exits non-zero, printing no result, without a CUDA device; any failed
+check raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+from repro_torch.config import get_arch  # noqa: E402
+from repro_torch.kernels.decode_attention import build, ops, ref  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.layers import PagedSpec  # noqa: E402
+from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Both sides of a decode-attention comparison compute in f32 and round
+# the output to the input dtype once.  f32: summation order only.  bf16:
+# the two f32 values may round to neighbouring bf16 numbers, one ulp
+# apart, which is at most 2**-7 of the value; rtol allows two such ulps,
+# atol covers outputs near zero (measured max error 2.4e-4..4.9e-4 at
+# kv_len 0..2048, where outputs are ~0.04).
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+       torch.bfloat16: dict(rtol=1.6e-2, atol=2e-3)}
+# FULL decode step in bf16, kernel path against plain path, as fractions
+# of the plain logits' RMS.  The plain path rounds the softmax weights to
+# bf16 before the value product, as the reference does; the kernel keeps
+# them in f32.  That difference, carried through 16 layers, read 0.086
+# (max) and 0.0157 (RMS) of the RMS with seed 0; the limits are about 2x.
+LOGIT_TOL = dict(max_abs=0.2, rms=0.03)
+KERNELS = {
+    "paged_kv_append": dict(
+        source="src/repro_torch/kernels/decode_attention/csrc/paged_kv_append.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:302"),
+    "paged_decode_attention": dict(
+        source="src/repro_torch/kernels/decode_attention/csrc/paged_decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:209"),
+}
+LAYERS = 16
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 5) -> float:
+    """Median CUDA-event time of ``fn``, with the L2 cache flushed before
+    each launch (the decode loop meets each layer's pages cold)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --- phase 1 -----------------------------------------------------------------
+
+
+def phase_build() -> str:
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    build_s = time.perf_counter() - t0
+    for name in KERNELS:
+        build.load(name)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    ptxas = {n: [ln.strip() for ln in r.splitlines()
+                 if "registers" in ln or "spill" in ln] for n, r in reports.items()}
+    emit("build", seconds=build_s, nvidia_smi=smi, ptxas=ptxas,
+         device=torch.cuda.get_device_name(0), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    return smi
+
+
+# --- phase 2 -----------------------------------------------------------------
+
+
+def decode_inputs(dtype, seed: int, dev, n_pages: int, kv_len: np.ndarray):
+    """llama3.2-1b FULL attention widths: B=16, Hkv=8, G=4, D=64, page 16;
+    each sequence owns n_pages shuffled pages, and one with kv_len 0
+    keeps an all-zero table row, as an idle batcher slot does."""
+    b, hkv, g, d, page = 16, 8, 4, 64, 16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = (1 + b * n_pages, page, hkv, d)
+    q = torch.randn((b, hkv * g, d), generator=gen, device=dev).to(dtype)
+    kp = torch.randn(pool, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(pool, generator=gen, device=dev).to(dtype)
+    rng = np.random.default_rng(seed)
+    table = (1 + rng.permutation(b * n_pages)).reshape(b, n_pages).astype(np.int32)
+    table[kv_len == 0] = 0
+    return (q, kp, vp, torch.tensor(table, device=dev),
+            torch.tensor(kv_len.astype(np.int32), device=dev))
+
+
+def append_inputs(dtype, seed: int, dev, n_pages: int, kv_len: np.ndarray):
+    _, kp, vp, table, lens = decode_inputs(dtype, seed, dev, n_pages, kv_len)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    b, hkv, d = lens.shape[0], kp.shape[2], kp.shape[3]
+    k_new = torch.randn((b, hkv, d), generator=gen, device=dev).to(dtype)
+    v_new = torch.randn((b, hkv, d), generator=gen, device=dev).to(dtype)
+    pos = lens.clamp(max=n_pages * kp.shape[1] - 1)  # write where the next token goes
+    return k_new, v_new, kp, vp, table, pos
+
+
+def check_parity(dev, seed: int, kv_len: np.ndarray) -> list:
+    """Each kernel against its plain version, bf16 and f32; raises on a
+    difference beyond TOL (decode) or any difference (append)."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, table, lens = decode_inputs(dtype, seed, dev, 128, kv_len)
+        for window in (0, 256):
+            out = ops.paged_decode_attention(q, kp, vp, table, lens, window=window)
+            plain = ref.paged_decode_attention_ref(q, kp, vp, table, lens, window=window)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
+            if not torch.all(out[kv_len == 0] == 0):
+                raise AssertionError("kv_len == 0 must give exactly zero")
+            err = out.float() - plain.float()
+            cases.append(dict(kernel="paged_decode_attention", dtype=str(dtype), window=window,
+                              max_abs_err=err.abs().max().item(),
+                              rms_err_over_rms=(err.pow(2).mean()
+                                                / plain.float().pow(2).mean()).sqrt().item()))
+        k_new, v_new, kp, vp, table, pos = append_inputs(dtype, seed + 1, dev, 128, kv_len)
+        got = ops.paged_kv_append(k_new, v_new, kp.clone(), vp.clone(), table, pos)
+        want = ref.paged_kv_append_ref(k_new, v_new, kp.clone(), vp.clone(), table, pos)
+        torch.cuda.synchronize()
+        # page 0 is scratch: idle slots may race on it, so it is never compared
+        err = max((g[1:].float() - w[1:].float()).abs().max().item()
+                  for g, w in zip(got, want))
+        if err != 0.0:
+            raise AssertionError(f"paged_kv_append differs from its plain version: {err}")
+        cases.append(dict(kernel="paged_kv_append", dtype=str(dtype), max_abs_err=err))
+    return cases
+
+
+def time_kernels(dev, seed: int, n_pages: int, kv_len: np.ndarray, flush) -> dict:
+    """bf16 times of each kernel, its plain version and one library call,
+    with the bound computed from these inputs."""
+    dtype, rows = torch.bfloat16, {}
+    q, kp, vp, table, lens = decode_inputs(dtype, seed, dev, n_pages, kv_len)
+    b, h, d = q.shape
+    hkv, page = kp.shape[2], kp.shape[1]
+    rows_kv = kv_len.astype(np.int64)
+    es = q.element_size()
+    # K and V rows of every sequence once, q in, out back, kv_len and the
+    # table entries the rows need
+    n_bytes = (2 * rows_kv.sum() * hkv * d * es + 2 * q.numel() * es
+               + 4 * b + 4 * np.ceil(rows_kv / page).sum())
+    bnd, by = bound_ms(n_bytes, 4 * rows_kv.sum() * h * d, dtype)
+    # library yardstick: SDPA over the gathered dense view, K/V expanded to
+    # every query head and the mask built outside the timed call
+    s = n_pages * page
+    kd = ref.gather_pages(kp, table).permute(0, 2, 1, 3).repeat_interleave(h // hkv, 1)
+    vd = ref.gather_pages(vp, table).permute(0, 2, 1, 3).repeat_interleave(h // hkv, 1)
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows["paged_decode_attention"] = dict(
+        kernel_ms=time_ms(lambda: ops.paged_decode_attention(q, kp, vp, table, lens), flush),
+        plain_ms=time_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp, table, lens), flush),
+        library_ms=time_ms(lambda: sdpa(q4, kd, vd, attn_mask=mask), flush),
+        bound_ms=bnd, bound_by=by, bytes=int(n_bytes))
+    del kd, vd
+
+    k_new, v_new, kp, vp, table, pos = append_inputs(dtype, seed + 1, dev, n_pages, kv_len)
+    n_bytes = 2 * 2 * k_new.numel() * es + 4 * b * 2  # K and V rows read + written; pos, table
+    bnd, by = bound_ms(n_bytes, 0, dtype)
+    flat_k, flat_v = kp.view(-1, hkv, d), vp.view(-1, hkv, d)
+    flat_idx = (table.long()[torch.arange(b, device=dev), pos.long() // page] * page
+                + pos.long() % page)
+
+    def library():
+        flat_k.index_copy_(0, flat_idx, k_new)
+        flat_v.index_copy_(0, flat_idx, v_new)
+
+    rows["paged_kv_append"] = dict(
+        kernel_ms=time_ms(lambda: ops.paged_kv_append(k_new, v_new, kp, vp, table, pos),
+                          flush),
+        plain_ms=time_ms(lambda: ref.paged_kv_append_ref(k_new, v_new, kp, vp, table, pos),
+                         flush),
+        library_ms=time_ms(library, flush), bound_ms=bnd, bound_by=by, bytes=int(n_bytes))
+    return rows
+
+
+def phase_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
+    rng = np.random.default_rng(seed)
+    # ragged kv_len in 0..2048: one empty slot, one full (128 pages of 16)
+    wide = rng.integers(1, 2049, size=16)
+    wide[0], wide[1] = 0, 2048
+    # the serving phase's lengths: prompts of 32..512 plus up to 32 new tokens,
+    # in a table of 64 pages (max_len 1024)
+    served = rng.integers(32, 513, size=16) + rng.integers(0, 33, size=16)
+    cases = check_parity(dev, seed, wide)
+    timings = {"kv_len_0_2048": time_kernels(dev, seed, 128, wide, flush),
+               "main_path": time_kernels(dev, seed, 64, served, flush)}
+    emit("kernels", cases=cases, timings=timings,
+         note="bf16 times in ms (CUDA events, median of 30, L2 flushed) at B=16 Hkv=8 G=4 "
+              "D=64 page=16; library: SDPA over the pre-gathered dense view / two "
+              "index_copy_ calls")
+    rows = timings["main_path"]
+    for name in KERNELS:
+        rows[name]["max_abs_err"] = max(c["max_abs_err"] for c in cases
+                                        if c["kernel"] == name and c["dtype"] == "torch.bfloat16")
+    return rows
+
+
+# --- phase 3 -----------------------------------------------------------------
+
+
+def phase_smoke(dev, seed: int) -> None:
+    cfg = get_arch("llama3.2-1b", smoke=True)
+    on_card = build_model(cfg, compute_dtype=torch.float32, device=dev)
+    on_cpu = build_model(cfg, compute_dtype=torch.float32, device="cpu", use_kernels=False)
+    p_card = on_card.init(torch.Generator().manual_seed(seed))  # drawn on the CPU: same numbers
+    p_cpu = on_cpu.init(torch.Generator().manual_seed(seed))
+
+    # prefill + three ragged decode steps, teacher-forced, logits compared
+    b, t, max_len = 3, 7, 32
+    spec = PagedSpec(num_pages=1 + b * 8, page_size=4)
+    rng = np.random.default_rng(seed)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(b, t)))
+    table = torch.tensor((1 + rng.permutation(b * 8)).reshape(b, 8).astype(np.int32))
+    worst = 0.0
+    caches = {}
+    for name, model, params in (("card", on_card, p_card), ("cpu", on_cpu, p_cpu)):
+        d = model.device
+        cache = model.init_cache(b, max_len, paged=spec)
+        for layer in cache:
+            layer["page_table"] = table.to(d)
+        logits, cache = model.prefill(params, {"tokens": prompt.to(d)}, cache, last_only=True)
+        caches[name] = (model, params, cache, [logits.cpu()])
+    pos = torch.tensor([t, t - 3, t - 1], dtype=torch.int32)
+    for name, (model, params, cache, outs) in caches.items():
+        for layer in cache:
+            layer["pos"] = pos.to(model.device)
+    tokens = caches["cpu"][3][0][:, -1].argmax(-1)[:, None]
+    for step in range(3):
+        for name, (model, params, cache, outs) in caches.items():
+            logits, cache = model.decode_step(params, tokens.to(model.device), cache,
+                                              (pos + step).to(model.device))
+            caches[name] = (model, params, cache, outs + [logits.cpu()])
+        tokens = caches["cpu"][3][-1][:, -1].argmax(-1)[:, None]
+    for a, c in zip(caches["card"][3], caches["cpu"][3]):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+        worst = max(worst, (a - c).abs().max().item())
+
+    # the paged batcher, with a pool tight enough to preempt
+    outputs, counts = [], []
+    for model, params in ((on_card, p_card), (on_cpu, p_cpu)):
+        bt = ContinuousBatcher(model, params, slots=4, max_len=32,
+                               paged=PagedSpec(num_pages=9, page_size=4))
+        reqs = [Request(prompt=[i % 5 + 1, i % 3 + 2, 4], max_new_tokens=10) for i in range(8)]
+        for r in reqs:
+            bt.submit(r)
+        bt.run_until_drained()
+        outputs.append([r.output for r in reqs])
+        counts.append((bt.preemptions, bt.steps, bt.page_pool.leaked()))
+    if outputs[0] != outputs[1] or counts[0] != counts[1]:
+        raise AssertionError(f"SMOKE batcher on the card differs from the CPU: {counts}")
+    emit("smoke", logits_max_abs_diff=worst, tol="rtol=atol=1e-4 (f32, TF32 off)",
+         batcher_tokens_equal=True, preemptions=counts[0][0], ticks=counts[0][1])
+
+
+# --- phase 4 / 5 ------------------------------------------------------------------
+
+
+def full_requests(cfg, seed: int):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(32, 513, size=32)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, size=n).tolist(),
+                    max_new_tokens=32) for n in lens]
+
+
+def full_batcher(model, params):
+    return ContinuousBatcher(model, params, slots=16, max_len=1024,
+                             paged=PagedSpec(num_pages=1 + 16 * 64, page_size=16))
+
+
+def timed(fn, acc: list):
+    def wrapper(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        acc.append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def phase_serve(model, params, cfg, seed: int) -> tuple:
+    # warm-up: cuBLAS handles, allocator, first launches
+    warm = full_batcher(model, params)
+    for r in full_requests(cfg, seed + 100)[:2]:
+        r.max_new_tokens = 4
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+
+    batcher = full_batcher(model, params)
+    prefill_s, decode_s = [], []
+    batcher.prefill_step = timed(batcher.prefill_step, prefill_s)
+    batcher.decode_step = timed(batcher.decode_step, decode_s)
+    reqs = full_requests(cfg, seed)
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()                      # main path: counters from zero
+    t0 = time.perf_counter()
+    decoded = batcher.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)             # read right after the run
+
+    if len(batcher.completed) != len(reqs):
+        raise AssertionError(f"{len(batcher.completed)} of {len(reqs)} requests completed")
+    for r in reqs:
+        if r.fail_reason is not None or len(r.output) != 32:
+            raise AssertionError(f"request {r.req_id}: {r.fail_reason}, {r.output}")
+        if not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.req_id}: token out of range")
+    if batcher.page_pool.leaked() != 0 or batcher.page_pool.in_use != 0:
+        raise AssertionError("pages leaked")
+    for name in KERNELS:
+        if launches[name] == 0 or launches[name] != batcher.steps * LAYERS:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches for {batcher.steps} ticks x {LAYERS} layers")
+    stats = dict(
+        requests=len(reqs), ticks=batcher.steps, decoded_tokens=decoded,
+        launches=launches, preemptions=batcher.preemptions,
+        leaked_pages=batcher.page_pool.leaked(),
+        page_high_watermark=batcher.page_pool.high_watermark,
+        decode_tokens_per_s=decoded / sum(decode_s),
+        decode_ms_per_tick=1e3 * statistics.median(decode_s),
+        prefill_ms_per_request=1e3 * statistics.mean(prefill_s),
+        end_to_end_tokens_per_s=sum(len(r.output) for r in reqs) / wall, wall_s=wall,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    return stats
+
+
+def phase_logits(model, params, cfg, seed: int) -> dict:
+    """One decode step, kernel path against plain path, from one state."""
+    plain = build_model(cfg, compute_dtype=model.compute_dtype, device=model.device,
+                        use_kernels=False)
+    b, t, max_len, page = 16, 256, 1024, 16
+    n_slot = max_len // page
+    spec = PagedSpec(num_pages=1 + b * n_slot, page_size=page)
+    rng = np.random.default_rng(seed + 7)
+    dev = model.device
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(b, t)), device=dev)
+    table = torch.tensor((1 + rng.permutation(b * n_slot)).reshape(b, n_slot).astype(np.int32),
+                         device=dev)
+    cache = model.init_cache(b, max_len, paged=spec)
+    for layer in cache:
+        layer["page_table"] = table
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": prompt}, cache, last_only=True)
+        pos = torch.tensor(rng.integers(1, t + 1, size=b).astype(np.int32), device=dev)
+        tokens = logits[:, -1].argmax(-1)[:, None]
+        copy = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+        for layer, layer2 in zip(cache, copy):
+            layer["pos"] = pos
+            layer2["pos"] = pos.clone()
+        k_logits, _ = model.decode_step(params, tokens, cache, pos)
+        p_logits, _ = plain.decode_step(params, tokens, copy, pos)
+    plain_f, diff = p_logits.float(), (k_logits.float() - p_logits.float())
+    top2 = plain_f[:, -1].topk(2, dim=-1).values
+    agree = (k_logits[:, -1].argmax(-1) == p_logits[:, -1].argmax(-1)).float().mean().item()
+    return dict(max_abs_diff=diff.abs().max().item(), rms_diff=diff.pow(2).mean().sqrt().item(),
+                plain_rms=plain_f.pow(2).mean().sqrt().item(),
+                plain_max_abs=plain_f.abs().max().item(), greedy_agreement=agree,
+                min_top2_margin=(top2[:, 0] - top2[:, 1]).min().item(),
+                finite=bool(torch.isfinite(k_logits).all()))
+
+
+def check_logits(logits: dict) -> None:
+    """The kernel path's logits against the plain path's, both in bf16:
+    the gates are fractions of the plain logits' RMS, and every greedy
+    token must agree."""
+    rms = logits["plain_rms"]
+    if (not logits["finite"] or logits["max_abs_diff"] > LOGIT_TOL["max_abs"] * rms
+            or logits["rms_diff"] > LOGIT_TOL["rms"] * rms
+            or logits["greedy_agreement"] != 1.0):
+        raise AssertionError(f"kernel-path logits differ from the plain path: {logits}")
+
+
+def phase_profile(model, params, cfg, seed: int) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batcher = full_batcher(model, params)
+    kv_rows = []
+    decode = batcher.decode_step
+
+    def decode_counting(params_, tokens, cache, positions):
+        active = [s for s in range(batcher.slots) if batcher.active[s] is not None]
+        kv_rows.append(int(sum(int(batcher.positions[s]) + 1 for s in active)))
+        return decode(params_, tokens, cache, positions)
+
+    batcher.decode_step = decode_counting
+    for r in full_requests(cfg, seed):
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        batcher.run_until_drained()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def dev_us(evt):
+        for n in ("device_time_total", "cuda_time_total"):
+            if hasattr(evt, n):
+                return float(getattr(evt, n))
+        return 0.0
+
+    # Only device-side entries (kernels, copies, fills): the CPU-side op
+    # entries carry their kernels' time as well and would count it twice.
+    per_kernel, busy_us, top = {}, 0.0, []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = dev_us(evt)
+        busy_us += us
+        top.append((us / 1e3, evt.count, evt.key[:90]))
+        for name in KERNELS:
+            if f"{name}_kernel" in evt.key:
+                per_kernel[name] = dict(calls=evt.count, device_ms=us / 1e3)
+    hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
+    # the profiler slows the host, so the busy share under it is a lower
+    # bound; device_s against the unprofiled serve wall_s is the other view
+    out = dict(ticks=batcher.steps, wall_s=wall, kernels=per_kernel, device_s=busy_us / 1e6,
+               top_device_ms=[dict(ms=ms, calls=n, name=k) for ms, n, k in sorted(top)[::-1][:10]],
+               device_busy_share_under_profiler=(busy_us / 1e6) / wall if busy_us else None)
+    dec = per_kernel.get("paged_decode_attention")
+    if dec and dec["device_ms"] > 0:
+        n_bytes = 2 * sum(kv_rows) * hkv * d * 2 * LAYERS  # bf16 K+V rows of active slots
+        out["decode_kernel_hbm_gb_per_s"] = n_bytes / (dec["device_ms"] / 1e3) / 1e9
+        out["decode_kernel_ms_per_call"] = dec["device_ms"] / dec["calls"]
+    else:
+        out["decode_kernel_hbm_gb_per_s"] = None  # not measured: no device time in the trace
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on a GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # references in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    smi = phase_build()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    rows = phase_kernels(dev, args.seed, flush)
+    del flush
+    phase_smoke(dev, args.seed)
+
+    cfg = get_arch("llama3.2-1b")
+    model = build_model(cfg)  # bf16 on the card, kernels on
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve = phase_serve(model, params, cfg, args.seed)
+    logits = phase_logits(model, params, cfg, args.seed)
+    emit("serve", init_s=init_s, **serve, logits_kernel_vs_plain=logits,
+         logits_tol=f"max|diff| <= {LOGIT_TOL['max_abs']} * rms(plain), rms(diff) <= "
+                    f"{LOGIT_TOL['rms']} * rms(plain), greedy agreement 1.0 (bf16)")
+    check_logits(logits)
+    prof = phase_profile(model, params, cfg, args.seed)
+    # the same requests ran unprofiled in the serve phase: device time of
+    # the trace over that run's wall time estimates its device busy share
+    prof["device_s_over_serve_wall"] = prof["device_s"] / serve["wall_s"]
+    emit("profile", **prof)
+
+    kernels = []
+    for name, meta in KERNELS.items():
+        r = rows[name]
+        kernels.append(dict(name=name, route="cuda", source=meta["source"],
+                            replaces=meta["replaces"], launches=serve["launches"][name],
+                            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,5 @@
+"""PyTorch/CUDA port of the reference package ``repro``, for the NVIDIA
+H100.  It imports ``torch`` and nothing of ``repro`` or JAX; each module
+keeps its own copy of what it needs, at the same relative path as its
+counterpart.  Ported so far: paged continuous-batching greedy decode of
+dense GQA decoders (llama3.2-1b), on two hand-written CUDA kernels."""

@@ -1,0 +1,212 @@
+"""Public wrappers for the paged decode kernels: validation, dispatch and
+launch counts.
+
+Dispatch follows the tensors' device.  CPU tensors go to the plain
+PyTorch versions in ``ref.py``; CUDA tensors launch the hand-written
+kernels in ``csrc/`` (built by ``build.py``) or raise.  There is no
+fallback: a kernel that fails to build or launch raises, and nothing is
+copied to the CPU.
+
+Validation keeps the reference wrapper's contract
+(src/repro/kernels/decode_attention/ops.py:38-61):
+
+  * ``kv_len`` / ``pos`` / ``page_table`` must be integer-typed; a float
+    length is a ``TypeError``, never a silent cast.
+  * On the CPU, out-of-range values raise ``ValueError``: ``kv_len >
+    n_pages * page`` would attend rows that do not exist, and a page id
+    past the pool would read another allocation.
+  * On CUDA the values are not inspected.  Reading them would cost one
+    device-to-host sync per layer per decode tick.  The kernels clamp on
+    the device instead, as the reference clamps traced values
+    (src/repro/kernels/decode_attention/ops.py:166-168 and :207-208),
+    and the serving batcher range-checks its host copies of the
+    positions and page tables before each tick.
+
+Scratch page 0: idle batcher slots keep all-zero table rows, so their
+appends all land in page 0 and may race there (several blocks storing
+one row), and their attention reads it.  That is benign: page 0 is
+never handed to a live request, and the idle slots' outputs are
+discarded.  Tests never compare page 0.
+
+``LAUNCHES`` counts kernel launches by name.  Only a launch on the card
+counts; the plain CPU path does not.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.decode_attention import build
+from repro_torch.kernels.decode_attention.ref import (
+    paged_decode_attention_ref,
+    paged_kv_append_ref,
+)
+
+LAUNCHES = {"paged_kv_append": 0, "paged_decode_attention": 0}
+
+# dtype codes of the C entry points
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _require_int(name: str, t: torch.Tensor) -> None:
+    if t.dtype.is_floating_point or t.dtype.is_complex or t.dtype == torch.bool:
+        raise TypeError(
+            f"{name} must be integer-typed (got {t.dtype}); a float "
+            "length would be truncated silently"
+        )
+
+
+def _check_range(name: str, t: torch.Tensor, upper: int) -> None:
+    """CPU tensors only: values must lie in [0, upper]."""
+    if t.numel() == 0:
+        return
+    lo, hi = int(t.min()), int(t.max())
+    if lo < 0:
+        raise ValueError(f"{name} has negative entries (min={lo})")
+    if hi > upper:
+        raise ValueError(
+            f"{name} exceeds the cache: max={hi} > {upper}; the kernel "
+            "would silently attend rows that do not exist"
+        )
+
+
+def _device_of(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
+    return dev
+
+
+def _check_cuda_operands(data, pools) -> None:
+    """Dtype and layout the kernels take; raises on anything else."""
+    dtype = pools[0].dtype
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernels take float32 or bfloat16 pools, got {dtype}")
+    for t in (*data, *pools):
+        if t.dtype != dtype:
+            raise TypeError(f"dtype mismatch: {t.dtype} vs pool {dtype}")
+    for t in pools:
+        if not t.is_contiguous():
+            raise ValueError("page pools must be contiguous (written in place)")
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def paged_decode_attention(
+    q: torch.Tensor,           # [B, H, D]
+    k_pages: torch.Tensor,     # [P, page, Hkv, D]
+    v_pages: torch.Tensor,     # [P, page, Hkv, D]
+    page_table: torch.Tensor,  # [B, n_pages] int
+    kv_len: torch.Tensor,      # [B] int
+    window: int = 0,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token GQA attention through the page table -> [B, H, D]."""
+    if q.ndim != 3:
+        raise ValueError("q must be [B, H, D] (one token per sequence)")
+    if q.shape[1] % k_pages.shape[2] != 0:
+        raise ValueError("num_heads must be a multiple of num_kv_heads")
+    if page_table.ndim != 2 or page_table.shape[0] != q.shape[0]:
+        raise ValueError(
+            f"page_table must be [B, n_pages], got {tuple(page_table.shape)} "
+            f"for batch {q.shape[0]}"
+        )
+    if kv_len.shape != (q.shape[0],):
+        raise ValueError(f"kv_len must be [B], got {tuple(kv_len.shape)}")
+    if k_pages.shape != v_pages.shape or k_pages.shape[3] != q.shape[2]:
+        raise ValueError("k_pages / v_pages must be [P, page, Hkv, D] matching q")
+    _require_int("kv_len", kv_len)
+    _require_int("page_table", page_table)
+    n_pages, page_size, num_pages = page_table.shape[1], k_pages.shape[1], k_pages.shape[0]
+    dev = _device_of(q, k_pages, v_pages, page_table, kv_len)
+    if dev.type == "cpu":
+        _check_range("kv_len", kv_len, n_pages * page_size)
+        _check_range("page_table", page_table, num_pages - 1)
+        return paged_decode_attention_ref(
+            q, k_pages, v_pages, page_table, kv_len, window=window, sm_scale=sm_scale
+        )
+
+    _check_cuda_operands((q,), (k_pages, v_pages))
+    b, h, d = q.shape
+    hkv = k_pages.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    q = q.contiguous()
+    table, lens = _int32(page_table), _int32(kv_len)
+    out = torch.empty_like(q)
+    fn = build.load("paged_decode_attention").paged_decode_attention
+    err = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b, h, hkv, d,
+        num_pages, page_size, n_pages, int(window), float(scale), _stream(dev),
+    )
+    _check_launch("paged_decode_attention", err)
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_kv_append(
+    k_new: torch.Tensor,       # [B, Hkv, D]
+    v_new: torch.Tensor,       # [B, Hkv, D]
+    k_pages: torch.Tensor,     # [P, page, Hkv, D] updated in place
+    v_pages: torch.Tensor,     # [P, page, Hkv, D] updated in place
+    page_table: torch.Tensor,  # [B, n_pages] int
+    pos: torch.Tensor,         # [B] int write positions (kv_len before append)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write each sequence's new K/V row into its page, in place; returns
+    the two pools (the same tensors)."""
+    if k_new.ndim != 3 or v_new.shape != k_new.shape:
+        raise ValueError("k_new / v_new must be [B, Hkv, D] (one token per sequence)")
+    if k_pages.shape != v_pages.shape or k_pages.shape[2:] != k_new.shape[1:]:
+        raise ValueError("k_pages / v_pages must be [P, page, Hkv, D] matching k_new")
+    if page_table.ndim != 2 or page_table.shape[0] != k_new.shape[0]:
+        raise ValueError(
+            f"page_table must be [B, n_pages], got {tuple(page_table.shape)} "
+            f"for batch {k_new.shape[0]}"
+        )
+    if pos.shape != (k_new.shape[0],):
+        raise ValueError(f"pos must be [B], got {tuple(pos.shape)}")
+    _require_int("pos", pos)
+    _require_int("page_table", page_table)
+    n_pages, page_size, num_pages = page_table.shape[1], k_pages.shape[1], k_pages.shape[0]
+    dev = _device_of(k_new, v_new, k_pages, v_pages, page_table, pos)
+    if dev.type == "cpu":
+        _check_range("pos", pos, n_pages * page_size - 1)
+        _check_range("page_table", page_table, num_pages - 1)
+        return paged_kv_append_ref(k_new, v_new, k_pages, v_pages, page_table, pos)
+
+    _check_cuda_operands((k_new, v_new), (k_pages, v_pages))
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    table, pos32 = _int32(page_table), _int32(pos)
+    b = k_new.shape[0]
+    row_bytes = k_new.shape[1] * k_new.shape[2] * k_new.element_size()
+    fn = build.load("paged_kv_append").paged_kv_append
+    err = fn(
+        k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        table.data_ptr(), pos32.data_ptr(), b, n_pages, num_pages, page_size,
+        row_bytes, _stream(dev),
+    )
+    _check_launch("paged_kv_append", err)
+    LAUNCHES["paged_kv_append"] += 1
+    return k_pages, v_pages

@@ -1,0 +1,56 @@
+"""Load the reference package's params into the port's layout.
+
+The input is the reference ``Model.init`` pytree with every leaf turned
+into a numpy array (a plain nested dict/list, so this module needs no
+JAX).  There, block params are stacked ``[n_periods, ...]`` per pattern
+position under ``"periods"``, with ``num_layers % len(pattern)``
+unstacked ``"remainder"`` blocks after them; layer ``i < n_periods *
+plen`` is ``periods[i % plen][...][i // plen]``.  The port keeps one dict
+per layer.  Every array keeps its layout (``wq [d, h, hd]``, ``wo [h,
+hd, d]``, ``w_gate [d, ff]``, ``tok [V, d]``): no transpose.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+from repro_torch.config.base import ArchConfig
+from repro_torch.models.transformer import check_supported
+
+Params = Dict[str, Any]
+
+
+def _tensors(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tensors(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(
+    tree: Params,
+    cfg: ArchConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """Reference params (numpy leaves) -> the port's params, cast once to
+    ``dtype`` on ``device``."""
+    check_supported(cfg)
+    to_t = lambda a: torch.tensor(np.asarray(a, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+    plen = len(cfg.pattern)
+    n_periods = cfg.num_layers // plen
+    layers = []
+    for i in range(cfg.num_layers):
+        if i < n_periods * plen:
+            stacked = tree["periods"][i % plen]
+            layers.append(_tensors(stacked, lambda a, p=i // plen: to_t(a[p])))
+        else:
+            layers.append(_tensors(tree["remainder"][i - n_periods * plen], to_t))
+    return {
+        "embed": _tensors(tree["embed"], to_t),
+        "layers": layers,
+        "final_norm": to_t(tree["final_norm"]),
+    }

@@ -1,0 +1,159 @@
+"""The port's paged decode kernels (``repro_torch.kernels.decode_attention``)
+against the reference package's Pallas kernels, run in interpret mode on
+the CPU, and its oracles: on the CPU the port's wrappers run their plain
+PyTorch versions (``test_torch_cuda_kernels.py`` holds the CUDA kernels
+against those on the card)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention.ops import (  # noqa: E402
+    paged_decode_attention as jax_paged_decode,
+    paged_kv_append as jax_paged_append,
+)
+from repro.kernels.decode_attention.ref import (  # noqa: E402
+    paged_decode_attention_ref as jax_paged_decode_ref,
+    paged_kv_append_ref as jax_paged_append_ref,
+)
+from repro_torch.kernels.decode_attention import build, ops  # noqa: E402
+
+# f32 on both sides: the same tolerance as the reference's kernel tests.
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def decode_case(seed, b, hkv, g, d, page, n_pages, kv_len):
+    """Pools of 1 + b*n_pages pages, each sequence owning n_pages of them
+    in shuffled order; a sequence with kv_len 0 keeps an all-zero (idle)
+    table row, as an empty batcher slot does."""
+    rng = np.random.default_rng(seed)
+    pool = (1 + b * n_pages, page, hkv, d)
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    k_pages = rng.standard_normal(pool).astype(np.float32)
+    v_pages = rng.standard_normal(pool).astype(np.float32)
+    table = (1 + rng.permutation(b * n_pages)).reshape(b, n_pages).astype(np.int32)
+    kv_len = np.asarray(kv_len, dtype=np.int32)
+    table[kv_len == 0] = 0
+    return q, k_pages, v_pages, table, kv_len
+
+
+def as_torch(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("g", [1, 4])
+def test_paged_decode_attention_matches_reference(g, page, window):
+    n_pages = 3
+    full = n_pages * page
+    # ragged: empty slot, full slot, one past a page boundary, partial page
+    kv_len = [0, full, page + 1, 3]
+    q, kp, vp, table, kl = decode_case(0, 4, 2, g, 16, page, n_pages, kv_len)
+    out = ops.paged_decode_attention(*as_torch(q, kp, vp, table, kl), window=window)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, table, kl)]
+    pallas = np.asarray(jax_paged_decode(*jargs, window=window))  # interpret on CPU
+    oracle = np.asarray(jax_paged_decode_ref(*jargs, window=window))
+    np.testing.assert_allclose(out.numpy(), pallas, **TOL)
+    np.testing.assert_allclose(out.numpy(), oracle, **TOL)
+    assert np.all(out.numpy()[0] == 0.0), "kv_len == 0 must give exactly zero"
+
+
+@pytest.mark.parametrize("page", [4, 16])
+def test_paged_kv_append_matches_reference(page):
+    b, hkv, d, n_pages = 4, 2, 16, 3
+    _, kp, vp, table, _ = decode_case(1, b, hkv, 1, d, page, n_pages, [5, 5, 5, 5])
+    rng = np.random.default_rng(2)
+    k_new = rng.standard_normal((b, hkv, d)).astype(np.float32)
+    v_new = rng.standard_normal((b, hkv, d)).astype(np.float32)
+    # first row of a page, last row of the last page, mid-page, and an
+    # idle slot (all-zero table row) that lands in scratch page 0
+    pos = np.array([page, n_pages * page - 1, 2, 7], dtype=np.int32)
+    table[3] = 0
+    tk, tv, tkp, tvp, tt, tpos = as_torch(k_new, v_new, kp, vp, table, pos)
+    out_k, out_v = ops.paged_kv_append(tk, tv, tkp, tvp, tt, tpos)
+    assert out_k is tkp and out_v is tvp, "the append is in place"
+    jargs = [jnp.asarray(a) for a in (k_new, v_new, kp, vp, table, pos)]
+    for jk, jv in (jax_paged_append(*jargs), jax_paged_append_ref(*jargs)):
+        # page 0 is scratch: idle slots may race on it, so it is never compared
+        np.testing.assert_array_equal(out_k.numpy()[1:], np.asarray(jk)[1:])
+        np.testing.assert_array_equal(out_v.numpy()[1:], np.asarray(jv)[1:])
+    untouched = np.ones(kp.shape[:2], dtype=bool)
+    for i in range(3):
+        untouched[table[i, pos[i] // page], pos[i] % page] = False
+    untouched[0] = False
+    np.testing.assert_array_equal(out_k.numpy()[untouched], kp[untouched])
+
+
+def _decode_args(**override):
+    q, kp, vp, table, kl = decode_case(3, 2, 2, 2, 8, 4, 2, [3, 8])
+    args = dict(q=q, k_pages=kp, v_pages=vp, page_table=table, kv_len=kl)
+    args.update(override)
+    return args
+
+
+def _append_args(**override):
+    _, kp, vp, table, _ = decode_case(4, 2, 2, 1, 8, 4, 2, [3, 8])
+    new = np.ones((2, 2, 8), dtype=np.float32)
+    args = dict(k_new=new, v_new=new, k_pages=kp, v_pages=vp, page_table=table,
+                pos=np.array([0, 7], dtype=np.int32))
+    args.update(override)
+    return args
+
+
+BAD_TABLE = np.array([[1, 2], [3, 5]], np.int32)  # page 5 of a 5-page pool
+INVALID = {
+    "float_kv_len": ("decode", dict(kv_len=np.array([3.0, 8.0], np.float32)), TypeError),
+    "float_page_table": ("decode", dict(page_table=np.ones((2, 2), np.float32)), TypeError),
+    "kv_len_past_cache": ("decode", dict(kv_len=np.array([3, 9], np.int32)), ValueError),
+    "negative_kv_len": ("decode", dict(kv_len=np.array([-1, 8], np.int32)), ValueError),
+    "page_id_past_pool": ("decode", dict(page_table=BAD_TABLE), ValueError),
+    "float_pos": ("append", dict(pos=np.array([0.0, 1.0], np.float32)), TypeError),
+    "pos_past_cache": ("append", dict(pos=np.array([0, 8], np.int32)), ValueError),
+    "append_page_id_past_pool": ("append", dict(page_table=BAD_TABLE), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INVALID))
+def test_validation_errors_match_reference(case):
+    kind, override, err = INVALID[case]
+    if kind == "decode":
+        args = _decode_args(**override)
+        port_fn, jax_fn = ops.paged_decode_attention, jax_paged_decode
+    else:
+        args = _append_args(**override)
+        port_fn, jax_fn = ops.paged_kv_append, jax_paged_append
+    with pytest.raises(err):
+        jax_fn(**{k: jnp.asarray(v) for k, v in args.items()})
+    with pytest.raises(err):
+        port_fn(**{k: torch.from_numpy(np.array(v)) for k, v in args.items()})
+
+
+def test_wrappers_refuse_devices_they_cannot_serve():
+    """No silent fallback: a tensor neither on the CPU nor on CUDA, or
+    operands split across devices, raise instead of being copied."""
+    args = {k: torch.from_numpy(np.array(v)) for k, v in _decode_args().items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.paged_decode_attention(**{k: v.to("meta") for k, v in args.items()})
+    args["q"] = args["q"].to("meta")
+    with pytest.raises(ValueError, match="different devices"):
+        ops.paged_decode_attention(**args)
+
+
+def test_missing_compiler_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "NVCC_CANDIDATES", ("no-such-nvcc",))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load("paged_decode_attention")
+    assert build._loaded == {}
+
+
+def test_plain_path_counts_no_launch():
+    ops.reset_launches()
+    ops.paged_decode_attention(*as_torch(*decode_case(5, 2, 2, 2, 8, 4, 2, [3, 8])))
+    assert ops.LAUNCHES == {"paged_kv_append": 0, "paged_decode_attention": 0}
