@@ -5,9 +5,9 @@ check it.
     python3 chip_smoke.py [--seed N]
 
 Phases, one JSON line each:
-  build    compile every CUDA kernel of the port from ``csrc/`` (one nvcc
-           per source, all started together) and read the card's name and
-           power limit from nvidia-smi.
+  build    compile every CUDA kernel of the port from its ``csrc/`` (one
+           nvcc per source, one after another) and read the card's name
+           and power limit from nvidia-smi.
   kernels  each kernel against its plain PyTorch version on the card at
            llama3.2-1b FULL widths (B=16, Hkv=8, G=4, D=64, page=16,
            ragged kv_len in 0..2048 with one zero), bf16 and f32, with and
@@ -15,6 +15,12 @@ Phases, one JSON line each:
            warm-up, L2 flushed before each launch) beside the bound, the
            plain version and one library call, at those lengths and at the
            serving phase's (32..544 rows in a 64-page table).
+  ssd_kernels
+           the SSD scan kernel against its plain version at mamba2-370m
+           FULL heads (H=32, P=64, N=128, chunk 64), B in {1, 4}, T=2048,
+           B and C in bf16 and f32, with and without an initial state;
+           then CUDA-event times of kernel and plain version beside the
+           bound, at T=2048 and at the mamba_serve phase's prompt lengths.
   smoke    llama3.2-1b SMOKE at f32: prefill + ragged decode logits of the
            kernel path on the card against the plain path on the CPU, and
            the paged batcher's tokens on the card against the CPU's.
@@ -27,6 +33,24 @@ Phases, one JSON line each:
   profile  the same serving run again under torch.profiler: device time
            of each kernel, the decode kernel's HBM bandwidth, the device's
            busy share.
+  mamba_smoke
+           mamba2-370m SMOKE at f32: prefill + decode logits of the kernel
+           path on the card against the plain path on the CPU, and the
+           dense batcher's tokens on the card against the CPU's.
+  mamba_serve
+           the mamba2 main path: mamba2-370m FULL (48 layers, seeded
+           random bf16 weights, f32 dt_bias/A_log/D) behind the dense
+           ContinuousBatcher(slots=16, max_len=1024) on 32 requests
+           (prompts of 32-512 tokens, 32 new tokens each).  The scan's
+           launch counter is zeroed just before the run and read just
+           after; it must equal admissions x 48 layers.
+  mamba_logits
+           kernel path against plain path over 2048 prompt positions:
+           FULL f32 (48 layers), FULL-width bf16 at 2 layers, and FULL
+           bf16 at 48 layers against the spread between two valid plain
+           paths (chunk 64 and chunk 32), each held to its gate.
+  mamba_profile
+           the mamba_serve run again under torch.profiler.
 Then the per-kernel JSON line, the nvidia-smi line, and the result line.
 Exits non-zero, printing no result, without a CUDA device; any failed
 check raises.
@@ -35,6 +59,8 @@ check raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -48,7 +74,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.config import get_arch  # noqa: E402
-from repro_torch.kernels.decode_attention import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, ssd_scan  # noqa: E402
+from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import PagedSpec  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
@@ -73,12 +100,29 @@ LOGIT_TOL = dict(max_abs=0.2, rms=0.03)
 KERNELS = {
     "paged_kv_append": dict(
         source="src/repro_torch/kernels/decode_attention/csrc/paged_kv_append.cu",
-        replaces="src/repro/kernels/decode_attention/kernel.py:302"),
+        replaces="src/repro/kernels/decode_attention/kernel.py:302",
+        signature=ops.SIGNATURES["paged_kv_append"]),
     "paged_decode_attention": dict(
         source="src/repro_torch/kernels/decode_attention/csrc/paged_decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention/kernel.py:209"),
+        replaces="src/repro/kernels/decode_attention/kernel.py:209",
+        signature=ops.SIGNATURES["paged_decode_attention"]),
+    "ssd_chunked": dict(
+        source="src/repro_torch/kernels/ssd_scan/csrc/ssd_chunked.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:88",
+        signature=ssd_scan.ops.SIGNATURES["ssd_chunked"]),
 }
+LLAMA_KERNELS = ("paged_kv_append", "paged_decode_attention")
 LAYERS = 16
+MAMBA_LAYERS = 48
+
+
+def reset_launches() -> None:
+    ops.reset_launches()
+    ssd_scan.reset_launches()
+
+
+def read_launches() -> dict:
+    return {**ops.LAUNCHES, **ssd_scan.LAUNCHES}
 
 
 def emit(phase: str, **fields) -> None:
@@ -112,22 +156,23 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
 # --- phase 1 -----------------------------------------------------------------
 
 
-def phase_build() -> str:
+def phase_build() -> tuple:
     t0 = time.perf_counter()
     reports = build.build_all()
     build_s = time.perf_counter() - t0
-    for name in KERNELS:
-        build.load(name)
+    for name, meta in KERNELS.items():
+        build.load(name, meta["signature"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     ptxas = {n: [ln.strip() for ln in r.splitlines()
-                 if "registers" in ln or "spill" in ln] for n, r in reports.items()}
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+             for n, r in reports.items()}
     emit("build", seconds=build_s, nvidia_smi=smi, ptxas=ptxas,
          device=torch.cuda.get_device_name(0), torch=torch.__version__,
          cuda=torch.version.cuda)
-    return smi
+    return smi, ptxas
 
 
 # --- phase 2 -----------------------------------------------------------------
@@ -256,7 +301,7 @@ def phase_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
               "D=64 page=16; library: SDPA over the pre-gathered dense view / two "
               "index_copy_ calls")
     rows = timings["main_path"]
-    for name in KERNELS:
+    for name in LLAMA_KERNELS:
         rows[name]["max_abs_err"] = max(c["max_abs_err"] for c in cases
                                         if c["kernel"] == name and c["dtype"] == "torch.bfloat16")
     return rows
@@ -361,12 +406,12 @@ def phase_serve(model, params, cfg, seed: int) -> tuple:
     for r in reqs:
         batcher.submit(r)
     torch.cuda.synchronize()
-    ops.reset_launches()                      # main path: counters from zero
+    reset_launches()                          # main path: counters from zero
     t0 = time.perf_counter()
     decoded = batcher.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)             # read right after the run
+    launches = read_launches()                # read right after the run
 
     if len(batcher.completed) != len(reqs):
         raise AssertionError(f"{len(batcher.completed)} of {len(reqs)} requests completed")
@@ -377,7 +422,7 @@ def phase_serve(model, params, cfg, seed: int) -> tuple:
             raise AssertionError(f"request {r.req_id}: token out of range")
     if batcher.page_pool.leaked() != 0 or batcher.page_pool.in_use != 0:
         raise AssertionError("pages leaked")
-    for name in KERNELS:
+    for name in LLAMA_KERNELS:
         if launches[name] == 0 or launches[name] != batcher.steps * LAYERS:
             raise AssertionError(
                 f"{name}: {launches[name]} launches for {batcher.steps} ticks x {LAYERS} layers")
@@ -441,21 +486,12 @@ def check_logits(logits: dict) -> None:
         raise AssertionError(f"kernel-path logits differ from the plain path: {logits}")
 
 
-def phase_profile(model, params, cfg, seed: int) -> dict:
+def profile_serving(batcher, reqs) -> dict:
+    """Serve ``reqs`` under torch.profiler; device time by kernel and in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batcher = full_batcher(model, params)
-    kv_rows = []
-    decode = batcher.decode_step
-
-    def decode_counting(params_, tokens, cache, positions):
-        active = [s for s in range(batcher.slots) if batcher.active[s] is not None]
-        kv_rows.append(int(sum(int(batcher.positions[s]) + 1 for s in active)))
-        return decode(params_, tokens, cache, positions)
-
-    batcher.decode_step = decode_counting
-    for r in full_requests(cfg, seed):
+    for r in reqs:
         batcher.submit(r)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -482,13 +518,28 @@ def phase_profile(model, params, cfg, seed: int) -> dict:
         for name in KERNELS:
             if f"{name}_kernel" in evt.key:
                 per_kernel[name] = dict(calls=evt.count, device_ms=us / 1e3)
-    hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
     # the profiler slows the host, so the busy share under it is a lower
     # bound; device_s against the unprofiled serve wall_s is the other view
-    out = dict(ticks=batcher.steps, wall_s=wall, kernels=per_kernel, device_s=busy_us / 1e6,
-               top_device_ms=[dict(ms=ms, calls=n, name=k) for ms, n, k in sorted(top)[::-1][:10]],
-               device_busy_share_under_profiler=(busy_us / 1e6) / wall if busy_us else None)
-    dec = per_kernel.get("paged_decode_attention")
+    return dict(ticks=batcher.steps, wall_s=wall, kernels=per_kernel, device_s=busy_us / 1e6,
+                top_device_ms=[dict(ms=ms, calls=n, name=k)
+                               for ms, n, k in sorted(top)[::-1][:10]],
+                device_busy_share_under_profiler=(busy_us / 1e6) / wall if busy_us else None)
+
+
+def phase_profile(model, params, cfg, seed: int) -> dict:
+    batcher = full_batcher(model, params)
+    kv_rows = []
+    decode = batcher.decode_step
+
+    def decode_counting(params_, tokens, cache, positions):
+        active = [s for s in range(batcher.slots) if batcher.active[s] is not None]
+        kv_rows.append(int(sum(int(batcher.positions[s]) + 1 for s in active)))
+        return decode(params_, tokens, cache, positions)
+
+    batcher.decode_step = decode_counting
+    out = profile_serving(batcher, full_requests(cfg, seed))
+    hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
+    dec = out["kernels"].get("paged_decode_attention")
     if dec and dec["device_ms"] > 0:
         n_bytes = 2 * sum(kv_rows) * hkv * d * 2 * LAYERS  # bf16 K+V rows of active slots
         out["decode_kernel_hbm_gb_per_s"] = n_bytes / (dec["device_ms"] / 1e3) / 1e9
@@ -496,6 +547,338 @@ def phase_profile(model, params, cfg, seed: int) -> dict:
     else:
         out["decode_kernel_hbm_gb_per_s"] = None  # not measured: no device time in the trace
     return out
+
+
+# --- mamba2: ssd_kernels, mamba_smoke, mamba_serve, mamba_logits, mamba_profile --
+
+MAMBA = "mamba2-370m"
+SSD_HEADS = dict(h=32, p=64, n=128, chunk=64)  # mamba2-370m FULL
+# SSD kernel against its plain version: both compute in f32 from the same
+# inputs (B and C rounded to bf16 first in the bf16 cases), in other
+# summation orders, so the error scales with the outputs (|y| reaches the
+# hundreds here).  Limits on max|err| as fractions of max|plain output|,
+# about 2x the largest readings, 1.23e-5 (y) and 2.66e-6 (state) (PERF.md).
+SSD_TOL = dict(y=2.5e-5, state=5.5e-6)
+# Kernel path against plain path over 2048 prompt positions, as fractions
+# of the plain logits' RMS; greedy tokens must agree wherever the plain
+# top-two margin exceeds 2 max|diff|, and such positions must be at least
+# 90% of all.  Limits at about 2x the readings (PERF.md): f32 at 48
+# layers rms 1.0e-4 and max 3.4e-3, 97% of positions clear; bf16 at 2
+# layers rms 2.5e-3, all clear.  bf16 at 48 layers: rms(kernel - plain)
+# at most 2x rms(plain at chunk 32 - plain), two equally valid plain paths
+# (ratio read 1.24).
+MAMBA_GATES = {"f32": dict(rms=2e-4, max_abs=7e-3, clear_share=0.9),
+               "bf16_2layers": dict(rms=5e-3, clear_share=0.9),
+               "bf16_spread": 2.0}
+
+
+def ssd_inputs(seed: int, b: int, t: int, dev, bc_dtype, state):
+    """Scan inputs as a mamba2-370m layer makes them: dt = softplus(N(0,1)),
+    a = exp(-dt * linspace(1, 16, H)) (the init's A_log), x = N(0,1) * dt,
+    B and C N(0,1) in ``bc_dtype``.  Initial state: none if ``state`` is
+    False, N(0,1) if True, and an all-zero tensor (what a prefill passes
+    from a fresh cache) if "zero"."""
+    h, p, n = SSD_HEADS["h"], SSD_HEADS["p"], SSD_HEADS["n"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn((b, t, h), generator=gen, device=dev))
+    a = torch.exp(-dt * torch.linspace(1.0, 16.0, h, device=dev))
+    x = torch.randn((b, t, h, p), generator=gen, device=dev) * dt[..., None]
+    bm = torch.randn((b, t, n), generator=gen, device=dev).to(bc_dtype)
+    cm = torch.randn((b, t, n), generator=gen, device=dev).to(bc_dtype)
+    s0 = torch.randn((b, h, n, p), generator=gen, device=dev) if state else None
+    if state == "zero":
+        s0.zero_()
+    return x, a, bm, cm, s0
+
+
+def ssd_f64(x, a, bm, cm, s0) -> tuple:
+    """The scan's recurrence, s = a_t s + B_t x_t^T and y_t = C_t . s, one
+    step at a time in f64: the exact answer both versions round from."""
+    x, a, bm, cm = x.double(), a.double(), bm.double(), cm.double()
+    s = (s0.double() if s0 is not None else
+         x.new_zeros((x.shape[0], x.shape[2], bm.shape[2], x.shape[3])))
+    ys = []
+    for i in range(x.shape[1]):
+        s = s * a[:, i, :, None, None] + bm[:, i, None, :, None] * x[:, i, :, None, :]
+        ys.append(torch.einsum("bn,bhnp->bhp", cm[:, i], s))
+    return torch.stack(ys, dim=1), s
+
+
+def ssd_work(b: int, t: int, bc_bytes: int, state) -> tuple:
+    """(bytes, f32 operations) one scan needs, ``state`` as in
+    ``ssd_inputs``.  Bytes: x, a, B, C and a given initial state read once,
+    y and the final state written once.  Operations, 2 per multiply-add:
+    C B^T over its lower triangle once per (b, chunk), since B and C are
+    shared by the heads; per (b, h, chunk) att x over its causal half, the
+    decay on att, B^T x with the end decay on B; and for every chunk that
+    enters with a nonzero state (all but the first when the initial state
+    is absent or zero) C S_prev scaled by exp(cum) and the decayed state
+    added."""
+    h, p, n, q = SSD_HEADS["h"], SSD_HEADS["p"], SSD_HEADS["n"], SSD_HEADS["chunk"]
+    nc, tri = t // q, q * (q + 1) // 2
+    n_bytes = (4 * b * t * h * p * 2 + 4 * b * t * h + 2 * b * t * n * bc_bytes
+               + 4 * b * h * n * p * (2 if state is not False else 1))
+    per_chunk = 2 * p * tri + tri + 2 * q * n * p + q * n
+    inter = 2 * q * n * p + q * p + 2 * n * p
+    n_ops = (b * nc * 2 * n * tri
+             + b * h * (nc * per_chunk + (nc if state is True else nc - 1) * inter))
+    return n_bytes, n_ops
+
+
+def prompt_lengths(seed: int) -> np.ndarray:
+    """The serving phases' prompt lengths (``full_requests``)."""
+    return np.random.default_rng(seed).integers(32, 513, size=32)
+
+
+def phase_ssd_kernels(dev, seed: int, flush: torch.Tensor, ptxas: list) -> dict:
+    q = SSD_HEADS["chunk"]
+    before = read_launches()["ssd_chunked"]
+    cases = []
+
+    def check(x, a, bm, cm, s0, **label) -> None:
+        y, s = ssd_scan.ssd_chunked(x, a, bm, cm, q, s0)
+        y_ref, s_ref = ssd_scan.ssd_chunked_ref(x, a, bm, cm, q, s0)
+        torch.cuda.synchronize()
+        y_err, s_err = (y - y_ref).abs().max().item(), (s - s_ref).abs().max().item()
+        y64, s64 = ssd_f64(x, a, bm, cm, s0)
+        to_f64 = {f"{out}_{who}_vs_f64": ((got.double() - want).abs().max()
+                                          / want.abs().max()).item()
+                  for out, want, pair in (("y", y64, (("kernel", y), ("plain", y_ref))),
+                                          ("state", s64, (("kernel", s), ("plain", s_ref))))
+                  for who, got in pair}
+        cases.append(dict(
+            **label, bc_dtype=str(bm.dtype),
+            y_max_abs_err=y_err, y_max_abs=y_ref.abs().max().item(),
+            y_rms_err_over_rms=((y - y_ref).pow(2).mean()
+                                / y_ref.pow(2).mean()).sqrt().item(),
+            state_max_abs_err=s_err, state_max_abs=s_ref.abs().max().item(),
+            **to_f64,  # readings: each version's max|err| over max|exact|
+            finite=bool(torch.isfinite(y).all() and torch.isfinite(s).all())))
+
+    for b in (1, 4):
+        for bc_dtype in (torch.bfloat16, torch.float32):
+            for state in (False, True):
+                check(*ssd_inputs(seed, b, 2048, dev, bc_dtype, state),
+                      batch=b, t=2048, initial_state=state)
+
+    def timing(b: int, t: int, state) -> dict:
+        x, a, bm, cm, s0 = ssd_inputs(seed + 1, b, t, dev, torch.bfloat16, state)
+        if state == "zero":  # the main path's own shapes: held to the gate too
+            check(x, a, bm, cm, s0, batch=b, t=t, initial_state=state)
+        n_bytes, n_ops = ssd_work(b, t, 2, state)
+        bnd, by = bound_ms(n_bytes, n_ops, torch.float32)
+        return dict(
+            kernel_ms=time_ms(lambda: ssd_scan.ssd_chunked(x, a, bm, cm, q, s0), flush),
+            plain_ms=time_ms(lambda: ssd_scan.ssd_chunked_ref(x, a, bm, cm, q, s0), flush),
+            bound_ms=bnd, bound_by=by, bytes=int(n_bytes), ops=int(n_ops))
+
+    # The model's own calls: B=1, bf16 B and C, the fresh cache's all-zero
+    # state, T the prompt padded to a multiple of the chunk.
+    padded = -(-prompt_lengths(seed) // q) * q
+    per_t = {int(t): timing(1, int(t), "zero") for t in sorted(set(padded.tolist()))}
+    weights = [int((padded == t).sum()) for t in per_t]
+    main_path = {k: sum(w * r[k] for w, r in zip(weights, per_t.values())) / sum(weights)
+                 for k in ("kernel_ms", "plain_ms", "bound_ms")}
+    # what bounds most of the launches' summed bound time
+    share = {by: sum(w * r["bound_ms"] for w, r in zip(weights, per_t.values())
+                     if r["bound_by"] == by) for by in ("bytes", "operations")}
+    main_path["bound_by"] = max(share, key=share.get)
+    timings = {"b1_t2048": timing(1, 2048, True), "b4_t2048": timing(4, 2048, True),
+               "main_path_per_launch": main_path,
+               "main_path_by_t": {str(t): r for t, r in per_t.items()}}
+    emit("ssd_kernels", cases=cases, tol=f"max|err| <= {SSD_TOL['y']} max|y| (y), "
+         f"{SSD_TOL['state']} max|state| (state)",
+         launches_parity_and_timing=read_launches()["ssd_chunked"] - before, ptxas=ptxas,
+         dynamic_smem_bytes_per_block=ssd_scan.ops.smem_bytes(
+             SSD_HEADS["p"], SSD_HEADS["n"], SSD_HEADS["chunk"]),
+         timing=timings,
+         note="ms: CUDA events, median of 30, L2 flushed; H=32 P=64 N=128 chunk 64, bf16 "
+              "B/C; b*_t2048: N(0,1) initial state; main_path: all-zero initial state, "
+              "mean per launch over the mamba_serve prompts; bound: bytes at 3.35 TB/s, "
+              "f32 operations at 67 TFLOP/s; library: none (no single PyTorch call "
+              "computes the scan)")
+    bad = [c for c in cases if not c["finite"]
+           or c["y_max_abs_err"] > SSD_TOL["y"] * c["y_max_abs"]
+           or c["state_max_abs_err"] > SSD_TOL["state"] * c["state_max_abs"]]
+    if bad:
+        raise AssertionError(f"ssd_chunked differs from its plain version: {bad}")
+    return dict(kernel_ms=main_path["kernel_ms"], plain_ms=main_path["plain_ms"],
+                bound_ms=main_path["bound_ms"], bound_by=main_path["bound_by"],
+                library_ms=None,
+                max_abs_err=max(c["y_max_abs_err"] for c in cases
+                                if c["bc_dtype"] == "torch.bfloat16"))
+
+
+def phase_mamba_smoke(dev, seed: int) -> None:
+    """SMOKE at f32: the kernel path on the card against the plain path on
+    the CPU, for prefill and decode logits and for the dense batcher."""
+    cfg = get_arch(MAMBA, smoke=True)
+    on_card = build_model(cfg, compute_dtype=torch.float32, device=dev)
+    on_cpu = build_model(cfg, compute_dtype=torch.float32, device="cpu", use_kernels=False)
+    p_card = on_card.init(torch.Generator().manual_seed(seed))  # drawn on the CPU: same numbers
+    p_cpu = on_cpu.init(torch.Generator().manual_seed(seed))
+    b, t = 3, 37  # not a multiple of the 16-step chunk
+    rng = np.random.default_rng(seed + 3)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(b, t)))
+    runs, worst = {}, 0.0
+    reset_launches()
+    for name, model, params in (("card", on_card, p_card), ("cpu", on_cpu, p_cpu)):
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, {"tokens": prompt.to(model.device)},
+                                          model.init_cache(b, 64))
+        runs[name] = (model, params, cache, [logits.cpu()])
+    if read_launches()["ssd_chunked"] != cfg.num_layers:
+        raise AssertionError(f"SMOKE prefill launched the scan {read_launches()} times")
+    tokens = runs["cpu"][3][0][:, -1].argmax(-1)[:, None]
+    pos = torch.full((b,), t, dtype=torch.int32)
+    for step in range(3):
+        for name, (model, params, cache, outs) in runs.items():
+            with torch.inference_mode():
+                logits, cache = model.decode_step(params, tokens.to(model.device), cache,
+                                                  (pos + step).to(model.device))
+            runs[name] = (model, params, cache, outs + [logits.cpu()])
+        tokens = runs["cpu"][3][-1][:, -1].argmax(-1)[:, None]
+    for a, c in zip(runs["card"][3], runs["cpu"][3]):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+        worst = max(worst, (a - c).abs().max().item())
+
+    outputs, ticks = [], []
+    for model, params in ((on_card, p_card), (on_cpu, p_cpu)):
+        bt = ContinuousBatcher(model, params, slots=3, max_len=64)
+        reqs = [Request(prompt=rng_prompt, max_new_tokens=6)
+                for rng_prompt in ([1], [5, 9], list(range(3, 20)), list(range(40, 70)),
+                                   [7] * 16, [2, 4, 6, 8, 10], list(range(1, 34)))]
+        for r in reqs:
+            bt.submit(r)
+        bt.run_until_drained()
+        outputs.append([r.output for r in reqs])
+        ticks.append(bt.steps)
+    if outputs[0] != outputs[1] or ticks[0] != ticks[1]:
+        raise AssertionError(f"SMOKE dense batcher on the card differs from the CPU: {ticks}")
+    emit("mamba_smoke", logits_max_abs_diff=worst, tol="rtol=atol=1e-4 (f32, TF32 off)",
+         batcher_tokens_equal=True, ticks=ticks[0])
+
+
+def mamba_batcher(model, params):
+    return ContinuousBatcher(model, params, slots=16, max_len=1024)  # dense mode
+
+
+def phase_mamba_serve(model, params, cfg, seed: int) -> dict:
+    warm = mamba_batcher(model, params)
+    for r in full_requests(cfg, seed + 100)[:2]:
+        r.max_new_tokens = 4
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+
+    batcher = mamba_batcher(model, params)
+    prefill_s, decode_s = [], []
+    batcher.prefill_step = timed(batcher.prefill_step, prefill_s)
+    batcher.decode_step = timed(batcher.decode_step, decode_s)
+    reqs = full_requests(cfg, seed)
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                          # main path: counters from zero
+    t0 = time.perf_counter()
+    decoded = batcher.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()                # read right after the run
+
+    admissions = len(prefill_s)
+    if len(batcher.completed) != len(reqs) or admissions != len(reqs):
+        raise AssertionError(f"{len(batcher.completed)} of {len(reqs)} requests completed "
+                             f"after {admissions} admissions")
+    for r in reqs:
+        if r.fail_reason is not None or len(r.output) != 32:
+            raise AssertionError(f"request {r.req_id}: {r.fail_reason}, {r.output}")
+        if not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.req_id}: token out of range")
+    if launches["ssd_chunked"] == 0 or launches["ssd_chunked"] != admissions * MAMBA_LAYERS:
+        raise AssertionError(f"ssd_chunked: {launches['ssd_chunked']} launches for "
+                             f"{admissions} admissions x {MAMBA_LAYERS} layers")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    return dict(
+        requests=len(reqs), admissions=admissions, ticks=batcher.steps,
+        prompt_tokens=prompt_tokens, decoded_tokens=decoded, launches=launches,
+        prefill_ms_per_request=1e3 * statistics.mean(prefill_s), prefill_s=sum(prefill_s),
+        prefill_tokens_per_s=prompt_tokens / sum(prefill_s),
+        decode_ms_per_tick=1e3 * statistics.median(decode_s), decode_s=sum(decode_s),
+        decode_tokens_per_s=decoded / sum(decode_s),
+        end_to_end_tokens_per_s=sum(len(r.output) for r in reqs) / wall, wall_s=wall,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+
+
+def compare_logits(test: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Logits [T, V] of one path against another's."""
+    diff = test - ref
+    max_diff = diff.abs().max()
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    clear = margin > 2 * max_diff
+    equal = test.argmax(-1) == ref.argmax(-1)
+    return dict(positions=ref.shape[0], max_abs_diff=max_diff.item(),
+                rms_diff=diff.pow(2).mean().sqrt().item(),
+                ref_rms=ref.pow(2).mean().sqrt().item(), ref_max_abs=ref.abs().max().item(),
+                greedy_equal=int(equal.sum()), clear_positions=int(clear.sum()),
+                greedy_equal_where_clear=int((equal & clear).sum()),
+                min_top2_margin=margin.min().item(), finite=bool(torch.isfinite(test).all()))
+
+
+def phase_mamba_logits(model, params, cfg, seed: int) -> dict:
+    """Prefill logits over 2048 positions, kernel path against plain path."""
+    dev = model.device
+    rng = np.random.default_rng(seed + 11)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(1, 2048)), device=dev)
+
+    def run(cfg_, params_, dtype, use_kernels):
+        m = build_model(cfg_, compute_dtype=dtype, device=dev, use_kernels=use_kernels)
+        with torch.inference_mode():
+            logits, _ = m.prefill(params_, {"tokens": prompt}, m.init_cache(1, 2048))
+        return logits[0].float()
+
+    out = {}
+    # f32, FULL width and depth: the model-level correctness gate
+    p32 = build_model(cfg, compute_dtype=torch.float32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    out["f32"] = compare_logits(run(cfg, p32, torch.float32, True),
+                                run(cfg, p32, torch.float32, False))
+    del p32
+    # bf16, FULL width, 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = build_model(cfg2, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    out["bf16_2layers"] = compare_logits(run(cfg2, p2, torch.bfloat16, True),
+                                         run(cfg2, p2, torch.bfloat16, False))
+    del p2
+    # bf16, FULL width and depth (the served weights), against the spread
+    # between two valid plain paths: chunk 64 and chunk 32
+    plain64 = run(cfg, params, torch.bfloat16, False)
+    out["bf16"] = compare_logits(run(cfg, params, torch.bfloat16, True), plain64)
+    cfg32 = dataclasses.replace(cfg, mamba=dataclasses.replace(cfg.mamba, chunk_size=32))
+    out["bf16_plain_chunk32"] = compare_logits(run(cfg32, params, torch.bfloat16, False),
+                                               plain64)
+    return out
+
+
+def check_mamba_logits(logits: dict) -> None:
+    failed = []
+    for key in ("f32", "bf16_2layers"):
+        r, g = logits[key], MAMBA_GATES[key]
+        rms = r["ref_rms"]
+        if (not r["finite"] or r["rms_diff"] > g["rms"] * rms
+                or ("max_abs" in g and r["max_abs_diff"] > g["max_abs"] * rms)
+                or r["greedy_equal_where_clear"] != r["clear_positions"]
+                or r["clear_positions"] < g["clear_share"] * r["positions"]):
+            failed.append(key)
+    spread = logits["bf16_plain_chunk32"]["rms_diff"]
+    if (not logits["bf16"]["finite"]
+            or logits["bf16"]["rms_diff"] > MAMBA_GATES["bf16_spread"] * spread):
+        failed.append("bf16")
+    if failed:
+        raise AssertionError(f"mamba2 kernel-path logits fail {failed}: {logits}")
 
 
 def main() -> int:
@@ -510,9 +893,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    smi = phase_build()
+    started = time.perf_counter()
+    smi, ptxas = phase_build()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     rows = phase_kernels(dev, args.seed, flush)
+    rows["ssd_chunked"] = phase_ssd_kernels(dev, args.seed, flush, ptxas.get("ssd_chunked"))
     del flush
     phase_smoke(dev, args.seed)
 
@@ -533,12 +918,39 @@ def main() -> int:
     # the trace over that run's wall time estimates its device busy share
     prof["device_s_over_serve_wall"] = prof["device_s"] / serve["wall_s"]
     emit("profile", **prof)
+    del model, params
+    gc.collect()  # the profile's batcher and its counting wrapper form a cycle
+    torch.cuda.empty_cache()
 
+    phase_mamba_smoke(dev, args.seed)
+    mcfg = get_arch(MAMBA)
+    mmodel = build_model(mcfg)  # bf16 on the card (f32 dt_bias, A_log, D), kernels on
+    t0 = time.perf_counter()
+    mparams = mmodel.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mserve = phase_mamba_serve(mmodel, mparams, mcfg, args.seed)
+    emit("mamba_serve", init_s=init_s, **mserve)
+    mlogits = phase_mamba_logits(mmodel, mparams, mcfg, args.seed)
+    emit("mamba_logits", **mlogits, gates=MAMBA_GATES,
+         note="f32 and bf16_2layers: rms(diff) <= rms * rms(plain) (and max|diff| <= "
+              "max_abs * rms(plain) in f32); greedy tokens equal wherever the plain top-2 "
+              "margin exceeds 2 max|diff|, at >= clear_share of the positions.  bf16 (48 "
+              "layers): rms(diff) <= bf16_spread * rms(plain chunk 32 - plain chunk 64)")
+    check_mamba_logits(mlogits)
+    mprof = profile_serving(mamba_batcher(mmodel, mparams), full_requests(mcfg, args.seed))
+    ssd = mprof["kernels"].get("ssd_chunked")
+    mprof["ssd_chunked_ms_per_call"] = ssd["device_ms"] / ssd["calls"] if ssd else None
+    mprof["device_s_over_serve_wall"] = mprof["device_s"] / mserve["wall_s"]
+    emit("mamba_profile", **mprof, elapsed_s=time.perf_counter() - started)
+
+    main_path_launches = {**{n: serve["launches"][n] for n in LLAMA_KERNELS},
+                          "ssd_chunked": mserve["launches"]["ssd_chunked"]}
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]
         kernels.append(dict(name=name, route="cuda", source=meta["source"],
-                            replaces=meta["replaces"], launches=serve["launches"][name],
+                            replaces=meta["replaces"], launches=main_path_launches[name],
                             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))

@@ -3,6 +3,7 @@ from repro_torch.config.base import (
     AttentionKind,
     FFNKind,
     LayerSpec,
+    MambaConfig,
     get_arch,
     register_arch,
 )

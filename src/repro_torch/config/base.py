@@ -1,17 +1,18 @@
 """Architecture descriptions and their registry.
 
 The port's own copy of the reference package's config types, trimmed to
-what the paged decode path reads: the attention / FFN kinds, one
-``LayerSpec`` per depth-pattern position, and ``ArchConfig``.  Configs
-are frozen dataclasses; each file in ``repro_torch/configs/`` registers a
-full-size config and a reduced ``smoke`` variant for CPU tests.
+what the ported paths read: the attention / FFN kinds, the Mamba-2
+block's ``MambaConfig``, one ``LayerSpec`` per depth-pattern position,
+and ``ArchConfig``.  Configs are frozen dataclasses; each file in
+``repro_torch/configs/`` registers a full-size config and a reduced
+``smoke`` variant for CPU tests.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 
 class AttentionKind(str, Enum):
@@ -25,6 +26,17 @@ class FFNKind(str, Enum):
     DENSE = "dense"
     MOE = "moe"
     NONE = "none"
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    """Mamba-2 SSD block hyperparameters."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 64
 
 
 @dataclass(frozen=True)
@@ -50,6 +62,7 @@ class ArchConfig:
     head_dim: int = 0                # 0 -> d_model // num_heads
     # Depth pattern: layer i uses pattern[i % len(pattern)]. Default: all-FULL.
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    mamba: Optional[MambaConfig] = None
     max_seq_len: int = 131072
     rope_theta: float = 500000.0
     norm_eps: float = 1e-6

@@ -3,7 +3,7 @@ launch counts.
 
 Dispatch follows the tensors' device.  CPU tensors go to the plain
 PyTorch versions in ``ref.py``; CUDA tensors launch the hand-written
-kernels in ``csrc/`` (built by ``build.py``) or raise.  There is no
+kernels in ``csrc/`` (built by ``kernels/build.py``) or raise.  There is no
 fallback: a kernel that fails to build or launch raises, and nothing is
 copied to the CPU.
 
@@ -34,18 +34,37 @@ counts; the plain CPU path does not.
 
 from __future__ import annotations
 
+import ctypes as _c
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.decode_attention import build
+from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref,
     paged_kv_append_ref,
 )
 
 LAUNCHES = {"paged_kv_append": 0, "paged_decode_attention": 0}
+
+# argtypes of each C entry point: every pointer and the stream as
+# c_void_p (a bare int would be cut to 32 bits), sizes as c_int.
+SIGNATURES = {
+    "paged_kv_append": [
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # k_new v_new k_pages v_pages
+        _c.c_void_p, _c.c_void_p,                            # page_table pos
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # batch n_pages num_pages page
+        _c.c_longlong, _c.c_void_p,                          # row_bytes stream
+    ],
+    "paged_decode_attention": [
+        _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q k_pages v_pages
+        _c.c_void_p, _c.c_void_p, _c.c_void_p,               # page_table kv_len out
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # dtype batch H Hkv D
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # num_pages page n_pages window
+        _c.c_float, _c.c_void_p,                             # sm_scale stream
+    ],
+}
 
 # dtype codes of the C entry points
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -155,7 +174,7 @@ def paged_decode_attention(
     q = q.contiguous()
     table, lens = _int32(page_table), _int32(kv_len)
     out = torch.empty_like(q)
-    fn = build.load("paged_decode_attention").paged_decode_attention
+    fn = build.load("paged_decode_attention", SIGNATURES["paged_decode_attention"])
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
         lens.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b, h, hkv, d,
@@ -201,7 +220,7 @@ def paged_kv_append(
     table, pos32 = _int32(page_table), _int32(pos)
     b = k_new.shape[0]
     row_bytes = k_new.shape[1] * k_new.shape[2] * k_new.element_size()
-    fn = build.load("paged_kv_append").paged_kv_append
+    fn = build.load("paged_kv_append", SIGNATURES["paged_kv_append"])
     err = fn(
         k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), pos32.data_ptr(), b, n_pages, num_pages, page_size,

@@ -7,7 +7,10 @@ position under ``"periods"``, with ``num_layers % len(pattern)``
 unstacked ``"remainder"`` blocks after them; layer ``i < n_periods *
 plen`` is ``periods[i % plen][...][i // plen]``.  The port keeps one dict
 per layer.  Every array keeps its layout (``wq [d, h, hd]``, ``wo [h,
-hd, d]``, ``w_gate [d, ff]``, ``tok [V, d]``): no transpose.
+hd, d]``, ``w_gate [d, ff]``, ``tok [V, d]``, ``in_proj [d, e]``,
+``conv_w [K, C]``): no transpose.  The Mamba leaves ``dt_bias``,
+``A_log`` and ``D`` stay float32 whatever ``dtype`` is, as in the
+reference's init.
 """
 
 from __future__ import annotations
@@ -18,15 +21,17 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ArchConfig
+from repro_torch.models.mamba2 import F32_LEAVES
 from repro_torch.models.transformer import check_supported
 
 Params = Dict[str, Any]
 
 
-def _tensors(tree: Any, fn) -> Any:
+def _tensors(tree: Any, fn, key: str = "") -> Any:
+    """``fn(leaf, key)`` on every leaf, ``key`` being the leaf's dict key."""
     if isinstance(tree, dict):
-        return {k: _tensors(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _tensors(v, fn, k) for k, v in tree.items()}
+    return fn(tree, key)
 
 
 def params_from_jax(
@@ -38,15 +43,18 @@ def params_from_jax(
     """Reference params (numpy leaves) -> the port's params, cast once to
     ``dtype`` on ``device``."""
     check_supported(cfg)
-    to_t = lambda a: torch.tensor(np.asarray(a, dtype=np.float32)).to(
-        device=device, dtype=dtype)
+
+    def to_t(a, key: str = "") -> torch.Tensor:
+        return torch.tensor(np.asarray(a, dtype=np.float32)).to(
+            device=device, dtype=torch.float32 if key in F32_LEAVES else dtype)
+
     plen = len(cfg.pattern)
     n_periods = cfg.num_layers // plen
     layers = []
     for i in range(cfg.num_layers):
         if i < n_periods * plen:
             stacked = tree["periods"][i % plen]
-            layers.append(_tensors(stacked, lambda a, p=i // plen: to_t(a[p])))
+            layers.append(_tensors(stacked, lambda a, k, p=i // plen: to_t(a[p], k)))
         else:
             layers.append(_tensors(tree["remainder"][i - n_periods * plen], to_t))
     return {

@@ -10,8 +10,9 @@ a shared page pool behind per-slot page tables.  A slot holds only the
 pages its request fills, pages are granted one at a time as the decode
 position crosses page boundaries, and a slot that cannot get its next
 page is preempted: pages freed, request requeued undecoded (recompute
-beats repair).  Without ``paged``, each slot owns ``max_len`` rows of a
-linear cache.
+beats repair).  Without ``paged`` (dense mode), each slot owns its batch
+row of every cache tensor: ``max_len`` rows of a linear KV cache, or a
+Mamba layer's conv and SSM states.  Paged mode is attention-only.
 
 The batcher keeps host (numpy) copies of every index the decode kernels
 read: the slot positions, the page tables and the device cache
@@ -59,6 +60,16 @@ class Request:
         self.fail_reason = None
         self.restarts += 1
         return self
+
+
+def _write_row(full: dict, row: dict, slot: int) -> None:
+    """Copy every tensor of a one-row cache into batch row ``slot`` of the
+    shared cache, in place (each cache tensor leads with the batch)."""
+    for key, value in row.items():
+        if isinstance(value, dict):
+            _write_row(full[key], value, slot)
+        else:
+            full[key][slot] = value[0]
 
 
 class ContinuousBatcher:
@@ -150,8 +161,7 @@ class ContinuousBatcher:
                 self.params, {"tokens": self._prompt(req)}, row_cache
             )
             for full, row in zip(self.cache, row_cache):
-                for key in ("k", "v", "pos"):
-                    full[key][slot] = row[key][0]
+                _write_row(full, row, slot)
         first = int(next_tok[0])
         self.active[slot] = req
         self.positions[slot] = len(req.prompt)

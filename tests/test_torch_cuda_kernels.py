@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 
 
@@ -75,3 +76,52 @@ def test_cuda_paged_kv_append_matches_plain(cuda, dtype):
     got_k, got_v = ops.paged_kv_append(tk, tv, tkp, tvp, tt, tpos)
     torch.cuda.synchronize()
     assert torch.equal(got_k[1:], want_k[1:]) and torch.equal(got_v[1:], want_v[1:])
+
+
+# The SSD kernel and its plain version both compute in f32 from the same
+# f32 (or bf16-valued) inputs, in other summation orders, so the error
+# grows with the outputs: at mamba2-370m FULL widths chip_smoke.py reads a
+# max error of 1.2e-5 of the largest |y| (PERF.md).  rtol 1e-4 allows
+# about 8x that per element; atol covers outputs near zero.
+SSD_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 256, 4, 64, 128, 64), (1, 48, 8, 16, 16, 16)],
+                         ids=["full_widths", "smoke_widths"])
+def test_cuda_ssd_chunked_matches_plain(cuda, bc_dtype, shape):
+    b, t, h, p, n, chunk = shape
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((b, t, h, p)).astype(np.float32) * 0.1
+    a = (1.0 / (1.0 + np.exp(-rng.standard_normal((b, t, h)) - 3.0))).astype(np.float32)
+    bm = rng.standard_normal((b, t, n)).astype(np.float32)
+    cm = rng.standard_normal((b, t, n)).astype(np.float32)
+    s0 = rng.standard_normal((b, h, n, p)).astype(np.float32)
+    tx, ta, tb, tc, ts = [v.to(cuda) for v in as_torch(x, a, bm, cm, s0)]
+    tb, tc = tb.to(bc_dtype), tc.to(bc_dtype)
+    for state in (None, ts):
+        before = ssd_scan.LAUNCHES["ssd_chunked"]
+        y, s = ssd_scan.ssd_chunked(tx, ta, tb, tc, chunk, state)
+        torch.cuda.synchronize()
+        assert ssd_scan.LAUNCHES["ssd_chunked"] == before + 1
+        y_ref, s_ref = ssd_scan.ssd_chunked_ref(tx, ta, tb, tc, chunk, state)
+        torch.testing.assert_close(y, y_ref, **SSD_TOL)
+        torch.testing.assert_close(s, s_ref, **SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 8, 8, 6), (256, 64, 128, 256)],
+                         ids=["chunk_not_multiple_of_4", "tiles_beyond_shared_memory"])
+def test_cuda_ssd_chunked_refuses_shapes_it_cannot_tile(cuda, shape):
+    """Shapes the kernel cannot take are refused without a launch, and the
+    wrapper raises instead of running anything else."""
+    t, p, n, chunk = shape
+    assert ssd_scan.ops.smem_bytes(64, 128, 64) <= 232448  # FULL fits one block
+    x = torch.zeros((1, t, 2, p), device=cuda)
+    a = torch.ones((1, t, 2), device=cuda)
+    bc = torch.zeros((1, t, n), device=cuda)
+    before = ssd_scan.LAUNCHES["ssd_chunked"]
+    with pytest.raises(RuntimeError, match="cannot tile"):
+        ssd_scan.ssd_chunked(x, a, bc, bc, chunk)
+    assert ssd_scan.LAUNCHES["ssd_chunked"] == before

@@ -19,7 +19,8 @@ from repro.kernels.decode_attention.ref import (  # noqa: E402
     paged_decode_attention_ref as jax_paged_decode_ref,
     paged_kv_append_ref as jax_paged_append_ref,
 )
-from repro_torch.kernels.decode_attention import build, ops  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.decode_attention import ops  # noqa: E402
 
 # f32 on both sides: the same tolerance as the reference's kernel tests.
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -149,7 +150,7 @@ def test_missing_compiler_raises_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.load("paged_decode_attention")
+        build.load("paged_decode_attention", ops.SIGNATURES["paged_decode_attention"])
     assert build._loaded == {}
 
 

@@ -42,7 +42,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 25  # every module was imported
 
 
 IMPORT_RE = re.compile(
@@ -53,7 +53,7 @@ IMPORT_RE = re.compile(
 
 def test_no_jax_or_reference_import_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) >= 27
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in IMPORT_RE.finditer(f.read_text())]
     assert offenders == []

@@ -1,7 +1,8 @@
-"""The port's serving layer: ``PagePool`` accounting, and the paged
+"""The port's serving layer: ``PagePool`` accounting, the paged
 continuous batcher token-for-token against the reference package's on
 llama3.2-1b SMOKE (f32, same params, same requests), including more
-requests than slots and a pool tight enough to force preemption."""
+requests than slots and a pool tight enough to force preemption, and the
+dense batcher on mamba2-370m SMOKE likewise."""
 
 import numpy as np
 import pytest
@@ -23,16 +24,25 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, PagedSpec, PagePool, Request  # noqa: E402
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jax_get_arch("llama3.2-1b", smoke=True)
+def _both_models(arch):
+    jcfg = jax_get_arch(arch, smoke=True)
     jmodel = jax_build_model(jcfg, compute_dtype=jnp.float32)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    cfg = get_arch("llama3.2-1b", smoke=True)
+    cfg = get_arch(arch, smoke=True)
     model = build_model(cfg, compute_dtype=torch.float32, device="cpu")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                              dtype=torch.float32, device="cpu")
     return (jmodel, jparams), (model, params)
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _both_models("llama3.2-1b")
+
+
+@pytest.fixture(scope="module")
+def mamba_models():
+    return _both_models("mamba2-370m")
 
 
 def serve_both(models, prompts, max_new, paged=None, **kw):
@@ -93,6 +103,38 @@ def test_dense_batcher_matches_reference(models):
     jb, jout, tb, tout = serve_both(models, prompts, 5, slots=2, max_len=32)
     assert tout == jout
     assert_drained(tb)
+
+
+def test_dense_batcher_serves_mamba2_as_reference(mamba_models):
+    """Every admission writes the whole one-row cache (conv and SSM states)
+    into its slot; ragged prompts (one token, shorter and longer than the
+    16-step chunk, none a multiple of it) and more requests than slots."""
+    rng = np.random.default_rng(3)
+    lens = [1, 5, 17, 30, 9, 23, 2]
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in lens]
+    jb, jout, tb, tout = serve_both(mamba_models, prompts, 6, slots=3, max_len=64)
+    assert tout == jout
+    assert all(len(o) == 6 for o in tout)
+    assert tb.steps == jb.steps
+    assert_drained(tb)
+
+
+def test_dense_admission_overwrites_every_cache_tensor_of_the_slot(mamba_models):
+    """A slot's states left over from an earlier request (and from riding
+    idle through decode ticks) never leak into the next admission."""
+    _, (model, params) = mamba_models
+    b = ContinuousBatcher(model, params, slots=2, max_len=64)
+    for layer in b.cache:
+        for t in layer["mamba"].values():
+            t.fill_(7.0)
+    req = Request(prompt=[4, 9, 1], max_new_tokens=3)
+    b.submit(req)
+    b.run_until_drained()
+    alone = ContinuousBatcher(model, params, slots=2, max_len=64)
+    again = Request(prompt=[4, 9, 1], max_new_tokens=3)
+    alone.submit(again)
+    alone.run_until_drained()
+    assert req.output == again.output
 
 
 def test_eos_frees_the_slot_early_as_in_reference(models):
