@@ -6,7 +6,8 @@ check it.
 
 Phases, one JSON line each:
   build    compile every CUDA kernel of the port from its ``csrc/`` (one
-           nvcc per source, one after another) and read the card's name
+           nvcc per source, all started together, so the build's time
+           stays flat as kernels are added) and read the card's name
            and power limit from nvidia-smi.
   kernels  each kernel against its plain PyTorch version on the card at
            llama3.2-1b FULL widths (B=16, Hkv=8, G=4, D=64, page=16,
@@ -51,6 +52,30 @@ Phases, one JSON line each:
            paths (chunk 64 and chunk 32), each held to its gate.
   mamba_profile
            the mamba_serve run again under torch.profiler.
+  tcmm_kernels
+           the TCMM assignment kernel (B7) against its plain version, f32
+           and bf16, points and centroids N(0,1)*3: the reference test's
+           four (N, M, F, n_valid) cases, the bench shape (4096, 512, 4,
+           512) and the main path's (1, 512, 4) with 512, 300 and 0 valid
+           rows.  Indices and d2 must be equal bit for bit (both sum in one
+           fixed order); 64 copies of centroid 7 map to 7.  Then CUDA-event
+           times at (4096, 512, 4) and (1, 512, 4) beside the bound, the
+           plain version and a library yardstick (cdist, then a masked min),
+           with L2 flushed and, for the kernel, warm as the pipeline meets it.
+  tcmm_pipeline
+           the TCMM main path: examples/quickstart.py's pipeline at
+           T-Drive's taxi count (TrajectorySource(num_taxis=10357), 20,000
+           points, 3 partitions each way, TCMMConfig() defaults: M=512,
+           threshold 2.0, k=8, macro period 256), micro ReactiveJob of 4
+           tasks (jsq) with task 0 killed past a third, macro ReactiveJob of
+           2 tasks.  Run on the card (kernel path; B7's counter zeroed just
+           before and read just after: one launch per point but the first)
+           and again on the CPU (plain path, no launch); every point
+           processed once, a restart, the same events and bit-equal state
+           on both, the k-means objective of every macro run within 1e-4.
+           Then the card run again on its first 2,000 points under
+           torch.profiler: device time by kernel, the host's largest
+           entries, and the device's share of the card run's wall.
 Then the per-kernel JSON line, the nvidia-smi line, and the result line.
 Exits non-zero, printing no result, without a CUDA device; any failed
 check raises.
@@ -67,14 +92,20 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.apps import tcmm  # noqa: E402
 from repro_torch.config import get_arch  # noqa: E402
-from repro_torch.kernels import build, ssd_scan  # noqa: E402
+from repro_torch.configs.tcmm import TCMMConfig  # noqa: E402
+from repro_torch.core.reactive import ReactiveJob  # noqa: E402
+from repro_torch.data.sources import TrajectorySource  # noqa: E402
+from repro_torch.data.topics import MessageLog  # noqa: E402
+from repro_torch.kernels import build, ssd_scan, tcmm_assign  # noqa: E402
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import PagedSpec  # noqa: E402
@@ -110,6 +141,10 @@ KERNELS = {
         source="src/repro_torch/kernels/ssd_scan/csrc/ssd_chunked.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:88",
         signature=ssd_scan.ops.SIGNATURES["ssd_chunked"]),
+    "tcmm_assign": dict(
+        source="src/repro_torch/kernels/tcmm_assign/csrc/tcmm_assign.cu",
+        replaces="src/repro/kernels/tcmm_assign/kernel.py:52",
+        signature=tcmm_assign.ops.SIGNATURES["tcmm_assign"]),
 }
 LLAMA_KERNELS = ("paged_kv_append", "paged_decode_attention")
 LAYERS = 16
@@ -119,25 +154,32 @@ MAMBA_LAYERS = 48
 def reset_launches() -> None:
     ops.reset_launches()
     ssd_scan.reset_launches()
+    tcmm_assign.reset_launches()
 
 
 def read_launches() -> dict:
-    return {**ops.LAUNCHES, **ssd_scan.LAUNCHES}
+    return {**ops.LAUNCHES, **ssd_scan.LAUNCHES, **tcmm_assign.LAUNCHES}
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 5) -> float:
+def time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
     """Median CUDA-event time of ``fn``, with the L2 cache flushed before
-    each launch (the decode loop meets each layer's pages cold)."""
+    each launch (the decode loop meets each layer's pages cold), or, with
+    ``flush=None``, left warm.  Either way the device is busy (flushing, or
+    a spin of about 1 ms) while the host enqueues ``fn``, so its wrapper's
+    Python and allocations stay out of the measured interval."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
-        flush.zero_()
+        if flush is None:
+            torch.cuda._sleep(2_000_000)
+        else:
+            flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -158,7 +200,10 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
 
 def phase_build() -> tuple:
     t0 = time.perf_counter()
-    reports = build.build_all()
+    with ThreadPoolExecutor(len(build.sources())) as pool:
+        reports = {}
+        for r in pool.map(lambda name: build.build_all([name]), build.sources()):
+            reports.update(r)
     build_s = time.perf_counter() - t0
     for name, meta in KERNELS.items():
         build.load(name, meta["signature"])
@@ -488,7 +533,6 @@ def check_logits(logits: dict) -> None:
 
 def profile_serving(batcher, reqs) -> dict:
     """Serve ``reqs`` under torch.profiler; device time by kernel and in all."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for r in reqs:
@@ -499,6 +543,13 @@ def profile_serving(batcher, reqs) -> dict:
         batcher.run_until_drained()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+
+    return dict(ticks=batcher.steps, **device_times(prof, wall))
+
+
+def device_times(prof, wall: float) -> dict:
+    """Device time of a profiled run, by kernel and in all."""
+    from torch.autograd import DeviceType
 
     def dev_us(evt):
         for n in ("device_time_total", "cuda_time_total"):
@@ -519,8 +570,8 @@ def profile_serving(batcher, reqs) -> dict:
             if f"{name}_kernel" in evt.key:
                 per_kernel[name] = dict(calls=evt.count, device_ms=us / 1e3)
     # the profiler slows the host, so the busy share under it is a lower
-    # bound; device_s against the unprofiled serve wall_s is the other view
-    return dict(ticks=batcher.steps, wall_s=wall, kernels=per_kernel, device_s=busy_us / 1e6,
+    # bound; device_s against an unprofiled run's wall_s is the other view
+    return dict(wall_s=wall, kernels=per_kernel, device_s=busy_us / 1e6,
                 top_device_ms=[dict(ms=ms, calls=n, name=k)
                                for ms, n, k in sorted(top)[::-1][:10]],
                 device_busy_share_under_profiler=(busy_us / 1e6) / wall if busy_us else None)
@@ -881,6 +932,255 @@ def check_mamba_logits(logits: dict) -> None:
         raise AssertionError(f"mamba2 kernel-path logits fail {failed}: {logits}")
 
 
+# --- TCMM: tcmm_kernels, tcmm_pipeline ----------------------------------------------
+
+TCMM_CASES = [(512, 64, 4, 64), (1024, 512, 8, 100), (256, 16, 128, 16), (512, 128, 4, 1),
+              (4096, 512, 4, 512), (1, 512, 4, 512), (1, 512, 4, 300), (1, 512, 4, 0)]
+TCMM_POINTS = 20_000
+TCMM_TAXIS = 10_357  # T-Drive's taxi count
+# points of the profiled rerun: the trace of all 20,000 took about 4 minutes
+# to collect and sum; a point's device work barely grows with the table
+TCMM_PROFILED_POINTS = 2_000
+# the macro k-means objective, card against CPU, relative: the centre sums
+# run through cuBLAS on the card and in another order on the CPU
+KMEANS_OBJECTIVE_RTOL = 1e-4
+
+
+def tcmm_inputs(seed: int, n: int, m: int, f: int, n_valid: int, dev, dtype):
+    rng = np.random.default_rng(seed)
+    pts = torch.tensor((rng.standard_normal((n, f)) * 3).astype(np.float32), device=dev)
+    cents = torch.tensor((rng.standard_normal((m, f)) * 3).astype(np.float32), device=dev)
+    return pts.to(dtype), cents.to(dtype), torch.arange(m, device=dev) < n_valid
+
+
+def tcmm_work(n: int, m: int, f: int, elem: int) -> tuple:
+    """(bytes, f32 operations) of one assignment: points, centroids and the
+    bool mask read once, index and d2 written once; per (n, m) pair F
+    products, F-1 sums, the doubling, the subtraction, the addition of |c|^2
+    and the comparison (2F + 3), plus |p|^2 and |c|^2 (2F - 1 each)."""
+    n_bytes = (n * f + m * f) * elem + m + 8 * n
+    n_ops = n * m * (2 * f + 3) + (n + m) * (2 * f - 1)
+    return n_bytes, n_ops
+
+
+def phase_tcmm_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, m, f, n_valid in TCMM_CASES:
+            pts, cents, valid = tcmm_inputs(seed, n, m, f, n_valid, dev, dtype)
+            idx, d2 = tcmm_assign.tcmm_assign(pts, cents, valid)
+            want_idx, want_d2 = tcmm_assign.tcmm_assign_ref(pts, cents, valid)
+            torch.cuda.synchronize()
+            finite = torch.isfinite(want_d2)
+            cases.append(dict(
+                n=n, m=m, f=f, n_valid=n_valid, dtype=str(dtype),
+                idx_equal=torch.equal(idx, want_idx), d2_bit_equal=torch.equal(d2, want_d2),
+                max_abs_err=(d2[finite] - want_d2[finite]).abs().max().item()
+                if finite.any() else 0.0,
+                idx_below_n_valid=bool((idx < n_valid).all()) if n_valid else None,
+                empty_table_gives_0_inf=(bool((idx == 0).all() and torch.isinf(d2).all())
+                                         if n_valid == 0 else None)))
+        cents = tcmm_inputs(seed + 1, 1, 32, 4, 32, dev, dtype)[1] * (5 / 3)
+        idx, d2 = tcmm_assign.tcmm_assign(cents[7].repeat(64, 1).contiguous(), cents,
+                                          torch.ones(32, dtype=torch.bool, device=dev))
+        torch.cuda.synchronize()
+        cases.append(dict(case="64 copies of centroid 7", dtype=str(dtype),
+                          maps_to_7=bool((idx == 7).all()),
+                          max_abs_d2=d2.abs().max().item()))
+    bad = [c for c in cases if not c.get("maps_to_7", True) or c.get("max_abs_d2", 0.0) > 1e-4
+           or c.get("idx_equal") is False or c.get("d2_bit_equal") is False
+           or c.get("idx_below_n_valid") is False or c.get("empty_table_gives_0_inf") is False]
+
+    def timing(n: int, m: int, f: int) -> dict:
+        pts, cents, valid = tcmm_inputs(seed + 2, n, m, f, m, dev, torch.float32)
+        bnd, by = bound_ms(*tcmm_work(n, m, f, 4), torch.float32)
+        masked = ~valid[None, :]
+
+        def library():  # no single call computes it: cdist, then a masked min
+            return torch.cdist(pts, cents).masked_fill(masked, float("inf")).min(dim=1)
+
+        return dict(
+            kernel_ms=time_ms(lambda: tcmm_assign.tcmm_assign(pts, cents, valid), flush),
+            # the pipeline meets the table warm in L2 (its centroids were just
+            # computed), so the kernel's time without the flush as well
+            kernel_ms_l2_warm=time_ms(lambda: tcmm_assign.tcmm_assign(pts, cents, valid),
+                                      None),
+            plain_ms=time_ms(lambda: tcmm_assign.tcmm_assign_ref(pts, cents, valid), flush),
+            library_ms=time_ms(library, flush), bound_ms=bnd, bound_by=by)
+
+    timings = {"n4096_m512_f4": timing(4096, 512, 4), "main_path_n1_m512_f4": timing(1, 512, 4)}
+    emit("tcmm_kernels", cases=cases, timing=timings,
+         note="f32 times in ms (CUDA events, median of 30, L2 flushed), all rows valid; "
+              "bound: bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s; library: "
+              "torch.cdist then masked_fill and min (no single call computes the "
+              "function; cdist gives distances, not their squares)")
+    if bad:
+        raise AssertionError(f"tcmm_assign differs from its plain version: {bad}")
+    row = timings["main_path_n1_m512_f4"]
+    return dict(kernel_ms=row["kernel_ms"], kernel_ms_l2_warm=row["kernel_ms_l2_warm"],
+                plain_ms=row["plain_ms"],
+                library_ms=row["library_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], max_abs_err=max(c.get("max_abs_err", 0.0)
+                                                          for c in cases))
+
+
+def run_tcmm_pipeline(points, device, n_points: int) -> dict:
+    """examples/quickstart.py's pipeline on ``device``, driven on the same
+    virtual clock whatever the device, so both runs see one ingest order."""
+    log = MessageLog()
+    log.create_topic("trajectories", 3)
+    log.create_topic("micro-changes", 3)
+    for key, point in points[:n_points]:
+        log.publish("trajectories", payload=point, key=key)
+    cfg = TCMMConfig()
+    micro = tcmm.MicroClusterJob(cfg, device=device)
+    macro = tcmm.MacroClusterJob(cfg, device=device)
+    events, ingest_s, macro_s, kmeans_runs = [], [], [], []
+
+    def micro_call(msg, _call=micro.__call__):
+        t0 = time.perf_counter()
+        out = _call(msg)
+        ingest_s.append(time.perf_counter() - t0)
+        events.append(out[0])
+        return out
+
+    def macro_call(msg, _call=macro.__call__):
+        t0 = time.perf_counter()
+        out = _call(msg)
+        macro_s.append(time.perf_counter() - t0)
+        if out:  # a k-means run: keep what its objective is computed from
+            valid = macro.replica.valid()
+            kmeans_runs.append((macro.replica.centroids()[valid].cpu().double().numpy(),
+                                macro.replica.n[valid].cpu().double().numpy(),
+                                macro.macro_centers.astype(np.float64), macro_s[-1]))
+        return out
+
+    micro_job = ReactiveJob("micro", log, "trajectories", micro_call,
+                            out_topic="micro-changes", initial_tasks=4, scheduler="jsq",
+                            heartbeat_timeout=3.0)
+    macro_job = ReactiveJob("macro", log, "micro-changes", macro_call, initial_tasks=2,
+                            heartbeat_timeout=3.0)
+    killed, t = False, 0.0
+    t0 = time.perf_counter()
+    while micro_job.backlog() or macro_job.backlog() or t == 0.0:
+        t += 1.0
+        micro_job.step(now=t)
+        macro_job.step(now=t)
+        if not killed and micro.state.processed > n_points // 3:
+            micro_job.tasks[0].alive = False
+            killed = True
+        if t > 100 * n_points:
+            raise AssertionError(f"the TCMM pipeline did not drain in {t:.0f} rounds")
+    if micro.state.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(micro=micro, macro=macro, log=log, events=events, wall_s=wall, rounds=t,
+                ingest_s=ingest_s, macro_s=macro_s, kmeans_runs=kmeans_runs,
+                restarts=sum(e[1] == "restarted" for e in micro_job.supervisor.events),
+                committed=micro_job.stage.committed_offsets(),
+                ends=log.get("trajectories").end_offsets(),
+                changes=log.get("micro-changes").total_messages())
+
+
+def kmeans_objective(cents: np.ndarray, weights: np.ndarray, centers: np.ndarray) -> float:
+    """sum_m w_m min_j |c_m - k_j|^2 in f64."""
+    d2 = ((cents[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
+    return float((weights * d2.min(axis=1)).sum())
+
+
+def phase_tcmm_pipeline(dev, seed: int, n_points: int = TCMM_POINTS) -> dict:
+    points = list(TrajectorySource(num_taxis=TCMM_TAXIS, seed=seed).stream(n_points))
+    run_tcmm_pipeline(points, dev, 300)  # warm-up: first launches, allocator, cuBLAS
+    torch.cuda.synchronize()
+    reset_launches()                          # main path: counters from zero
+    card = run_tcmm_pipeline(points, dev, n_points)
+    launches = read_launches()                # read right after the run
+    reset_launches()
+    cpu = run_tcmm_pipeline(points, "cpu", n_points)
+    cpu_launches = read_launches()["tcmm_assign"]
+
+    failed = []
+    for name, run in (("card", card), ("cpu", cpu)):
+        if not (run["micro"].state.processed == n_points == run["macro"].replica.processed
+                == run["changes"] and run["committed"] == dict(enumerate(run["ends"]))):
+            failed.append(f"{name}: not every point exactly once")
+        if run["restarts"] < 1:
+            failed.append(f"{name}: no restart")
+    if launches["tcmm_assign"] != card["micro"].state.processed - 1 or cpu_launches != 0:
+        failed.append(f"B7 launches {launches['tcmm_assign']} on the card (want "
+                      f"{card['micro'].state.processed - 1}), {cpu_launches} on the CPU")
+    if card["events"] != cpu["events"]:
+        first = next(i for i, (a, b) in enumerate(zip(card["events"], cpu["events"]))
+                     if a != b) if len(card["events"]) == len(cpu["events"]) else -1
+        failed.append(f"events differ (first at {first})")
+    state_equal = {k: torch.equal(getattr(card["micro"].state, k).cpu(),
+                                  getattr(cpu["micro"].state, k)) for k in ("n", "ls", "ss")}
+    if not all(state_equal.values()) or card["micro"].state.num_active != \
+            cpu["micro"].state.num_active:
+        failed.append(f"micro state differs: {state_equal}")
+    objectives, centre_diff = [], 0.0
+    if card["macro"].macro_runs != cpu["macro"].macro_runs:
+        failed.append(f"macro runs {card['macro'].macro_runs} != {cpu['macro'].macro_runs}")
+    else:
+        for (c_a, w_a, k_a, _), (c_b, w_b, k_b, _) in zip(card["kmeans_runs"],
+                                                          cpu["kmeans_runs"]):
+            a, b = kmeans_objective(c_a, w_a, k_a), kmeans_objective(c_b, w_b, k_b)
+            objectives.append(abs(a - b) / b)
+            centre_diff = max(centre_diff, float(np.abs(k_a - k_b).max()))
+        if max(objectives, default=0.0) > KMEANS_OBJECTIVE_RTOL:
+            failed.append(f"k-means objective off by {max(objectives)} relative")
+
+    def per_call_us(xs):
+        return dict(mean=1e6 * statistics.mean(xs), median=1e6 * statistics.median(xs))
+
+    out = dict(
+        points=n_points, taxis=TCMM_TAXIS, num_active=card["micro"].state.num_active,
+        macro_runs=card["macro"].macro_runs, launches=launches["tcmm_assign"],
+        cpu_launches=cpu_launches, restarts=card["restarts"], rounds=card["rounds"],
+        events_equal=card["events"] == cpu["events"], state_bit_equal=state_equal,
+        kmeans_objective_max_rel_diff=max(objectives, default=None),
+        kmeans_max_centre_diff=centre_diff,
+        card=dict(wall_s=card["wall_s"], points_per_s=n_points / card["wall_s"],
+                  ingest_us=per_call_us(card["ingest_s"]),
+                  macro_event_us=per_call_us(card["macro_s"]),
+                  kmeans_run_ms=1e3 * statistics.mean(r[3] for r in card["kmeans_runs"])),
+        cpu=dict(wall_s=cpu["wall_s"], points_per_s=n_points / cpu["wall_s"],
+                 ingest_us=per_call_us(cpu["ingest_s"]),
+                 macro_event_us=per_call_us(cpu["macro_s"]),
+                 kmeans_run_ms=1e3 * statistics.mean(r[3] for r in cpu["kmeans_runs"])),
+        note="ingest_us: time inside MicroClusterJob.__call__; macro_event_us: inside "
+             "MacroClusterJob.__call__; kmeans_run_ms: a macro call that ran k-means "
+             "(apply, k-means, readback); host clock")
+    if failed:
+        emit("tcmm_pipeline", **out, failed=failed)
+        raise AssertionError(f"TCMM pipeline: {failed}")
+    prof = out["profile"] = profile_tcmm(points, dev, TCMM_PROFILED_POINTS)
+    prof["device_us_per_point"] = 1e6 * prof["device_s"] / TCMM_PROFILED_POINTS
+    # that device time per point over the unprofiled card run's wall per point
+    prof["device_share_of_card_wall_est"] = (prof["device_s"] / TCMM_PROFILED_POINTS
+                                             * n_points / card["wall_s"])
+    return out
+
+
+def profile_tcmm(points, dev, n_points: int) -> dict:
+    """The card run again on the first ``n_points`` under torch.profiler:
+    device time by kernel and in all, and the host's largest entries by
+    their own CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_tcmm_pipeline(points, dev, n_points)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key[:60])
+                   for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  reverse=True)[:10]
+    return dict(**device_times(prof, wall),
+                host_top_self_cpu_ms=[dict(ms=ms, calls=n, name=k) for ms, n, k in host])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -943,9 +1243,22 @@ def main() -> int:
     mprof["ssd_chunked_ms_per_call"] = ssd["device_ms"] / ssd["calls"] if ssd else None
     mprof["device_s_over_serve_wall"] = mprof["device_s"] / mserve["wall_s"]
     emit("mamba_profile", **mprof, elapsed_s=time.perf_counter() - started)
+    del mmodel, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows["tcmm_assign"] = phase_tcmm_kernels(dev, args.seed, flush)
+    del flush
+    pipe = phase_tcmm_pipeline(dev, args.seed)
+    pipe["b7_share_of_card_wall"] = {  # launches x kernel time over the card run's wall
+        when: pipe["launches"] * rows["tcmm_assign"][key] / 1e3 / pipe["card"]["wall_s"]
+        for when, key in (("l2_flushed", "kernel_ms"), ("l2_warm", "kernel_ms_l2_warm"))}
+    emit("tcmm_pipeline", **pipe, nvidia_smi=smi, elapsed_s=time.perf_counter() - started)
 
     main_path_launches = {**{n: serve["launches"][n] for n in LLAMA_KERNELS},
-                          "ssd_chunked": mserve["launches"]["ssd_chunked"]}
+                          "ssd_chunked": mserve["launches"]["ssd_chunked"],
+                          "tcmm_assign": pipe["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]

@@ -31,11 +31,11 @@ def check_supported(cfg: ArchConfig) -> None:
         if spec.is_mamba:
             ok = cfg.mamba is not None and spec.ffn == FFNKind.NONE
         else:
-            ok = (spec.ffn == FFNKind.DENSE
-                  and spec.attention in (AttentionKind.FULL, AttentionKind.SLIDING))
+            # SLIDING layers need the ring cache (slot_pos), not ported yet
+            ok = spec.ffn == FFNKind.DENSE and spec.attention == AttentionKind.FULL
         if not ok:
             raise NotImplementedError(
-                f"{cfg.name} layer {i} ({spec}): only dense self-attention + "
+                f"{cfg.name} layer {i} ({spec}): only full self-attention + "
                 "SwiGLU blocks and FFN-less Mamba-2 blocks are ported"
             )
 

@@ -8,7 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ssd_scan  # noqa: E402
+from repro_torch.kernels import ssd_scan, tcmm_assign  # noqa: E402
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 
 
@@ -125,3 +125,40 @@ def test_cuda_ssd_chunked_refuses_shapes_it_cannot_tile(cuda, shape):
     with pytest.raises(RuntimeError, match="cannot tile"):
         ssd_scan.ssd_chunked(x, a, bc, bc, chunk)
     assert ssd_scan.LAUNCHES["ssd_chunked"] == before
+
+
+# B7 and its plain version sum d2 in one fixed order with one rounding per
+# operation (ref.py), so d2 is bit-equal and the indices equal: no tolerance.
+TCMM_CASES = [(512, 64, 4, 64), (1024, 512, 8, 100), (256, 16, 128, 16), (512, 128, 4, 1),
+              (4096, 512, 4, 512), (1, 512, 4, 512), (1, 512, 4, 300), (1, 512, 4, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,f,n_valid", TCMM_CASES)
+def test_cuda_tcmm_assign_equals_plain_bit_for_bit(cuda, n, m, f, n_valid, dtype):
+    rng = np.random.default_rng(10)
+    pts = (rng.standard_normal((n, f)) * 3).astype(np.float32)
+    cents = (rng.standard_normal((m, f)) * 3).astype(np.float32)
+    tp, tc = [t.to(cuda).to(dtype) for t in as_torch(pts, cents)]
+    valid = (torch.arange(m) < n_valid).to(cuda)
+    before = tcmm_assign.LAUNCHES["tcmm_assign"]
+    idx, d2 = tcmm_assign.tcmm_assign(tp, tc, valid)
+    torch.cuda.synchronize()
+    assert tcmm_assign.LAUNCHES["tcmm_assign"] == before + 1
+    want_idx, want_d2 = tcmm_assign.tcmm_assign_ref(tp, tc, valid)
+    assert torch.equal(idx, want_idx) and torch.equal(d2, want_d2)
+    if n_valid == 0:
+        assert (idx == 0).all() and torch.isinf(d2).all()
+    else:
+        assert (idx < n_valid).all()
+
+
+@pytest.mark.cuda
+def test_cuda_tcmm_assign_point_on_a_centroid_maps_to_it(cuda):
+    cents = torch.from_numpy(
+        (np.random.default_rng(11).standard_normal((32, 4)) * 5).astype(np.float32)).to(cuda)
+    idx, d2 = tcmm_assign.tcmm_assign(cents[7].repeat(64, 1), cents,
+                                      torch.ones(32, dtype=torch.bool, device=cuda))
+    torch.cuda.synchronize()
+    assert (idx == 7).all() and (d2.abs() <= 1e-4).all()

@@ -33,8 +33,17 @@ for name in names:
 leaked = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and (m == "repro" or m.startswith(("repro.", "jax"))))
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# The TCMM slice's modules: the app, its config, source and kernel, and the
+# Reactive Liquid runtime it runs on.
+TCMM_SLICE = {f"repro_torch.{m}" for m in (
+    "configs.tcmm", "data.sources", "kernels.tcmm_assign.ref", "kernels.tcmm_assign.ops",
+    "apps.tcmm", "core.messages", "core.crdt", "telemetry.metrics", "telemetry.profile",
+    "core.state", "data.topics", "core.supervision", "core.elastic", "core.scheduler",
+    "core.cluster", "core.pool", "core.virtual_messaging", "core.dataflow", "core.reactive",
+    "core.liquid")}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -42,7 +51,9 @@ def test_port_imports_with_jax_and_reference_blocked():
     proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25  # every module was imported
+    names = set(proc.stdout.split())
+    assert len(names) >= 48  # every module was imported
+    assert TCMM_SLICE <= names
 
 
 IMPORT_RE = re.compile(
@@ -53,7 +64,7 @@ IMPORT_RE = re.compile(
 
 def test_no_jax_or_reference_import_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 27
+    assert len(files) >= 50
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in IMPORT_RE.finditer(f.read_text())]
     assert offenders == []
@@ -71,3 +82,22 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
         build_model(cfg, device="cuda")
     model = build_model(cfg, compute_dtype=torch.float32, device="cpu")
     assert model.device == torch.device("cpu")
+
+    from repro_torch.apps import tcmm
+    from repro_torch.configs.tcmm import TCMMConfig
+    from repro_torch.kernels.tcmm_assign import ops as assign_ops
+
+    tcfg = TCMMConfig()
+    for make in (tcmm.MicroClusterState, tcmm.MicroClusterJob, tcmm.MacroClusterJob):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(tcfg)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(tcfg, device="cuda")
+    assert tcmm.MicroClusterState(tcfg, device="cpu").n.device == torch.device("cpu")
+    # the wrapper follows its tensors: the plain version only on the CPU
+    monkeypatch.setattr(assign_ops, "tcmm_assign_ref",
+                        lambda *a: pytest.fail("plain version reached off the CPU"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        assign_ops.tcmm_assign(torch.zeros((1, 4), device="meta"),
+                               torch.zeros((8, 4), device="meta"),
+                               torch.ones(8, dtype=torch.bool, device="meta"))

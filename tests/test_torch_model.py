@@ -133,3 +133,19 @@ def test_tied_embedding_is_scaled_by_sqrt_d_model(setup):
     np.testing.assert_allclose(
         embed(params["embed"], tokens, cfg).numpy(),
         params["embed"]["tok"][tokens].numpy() * np.sqrt(cfg.d_model), rtol=1e-6)
+
+
+def test_sliding_layers_are_refused_until_the_ring_cache_is_ported():
+    """A SLIDING layer would run on a linear cache, which is not what the
+    reference's ring cache computes past the window: it is refused, as
+    Mamba blocks with an FFN are."""
+    import dataclasses
+
+    from repro_torch.config.base import AttentionKind, LayerSpec
+
+    cfg = get_arch("llama3.2-1b", smoke=True)
+    swa = dataclasses.replace(cfg, pattern=(LayerSpec(attention=AttentionKind.SLIDING, window=4),
+                                            LayerSpec()))
+    with pytest.raises(NotImplementedError, match="layer 0"):
+        build_model(swa, compute_dtype=torch.float32, device="cpu")
+    build_model(cfg, compute_dtype=torch.float32, device="cpu")  # all-FULL still builds
