@@ -16,6 +16,21 @@ Phases, one JSON line each:
            warm-up, L2 flushed before each launch) beside the bound, the
            plain version and one library call, at those lengths and at the
            serving phase's (32..544 rows in a 64-page table).
+  flash_kernels
+           the flash attention kernel (B4) against its plain version at
+           llama3.2-1b's heads (H=32, Hkv=8, D=64), B=2, f32 and bf16: T=S
+           in {1, 32, 200, 512, 2048} causal with window 0 and 128, a
+           64-row chunk at q_offset 256 of 320 keys, a case whose every
+           row is masked (exactly 0), one non-causal case; v all ones gives
+           1 to 1e-4.  Then bf16 times at B=1 over the served prompt
+           lengths and at T=2048, beside the bound, the plain version and
+           scaled_dot_product_attention.
+  dense_decode_kernels
+           the dense decode kernel (B3) against its plain version, f32 and
+           bf16, B=16, S in {1024, 1000}, kv_len ragged with 0, S and one
+           value past S (held against the plain version at min(kv_len, S)),
+           window 0 and 128, and against B2 on a paged copy of the cache;
+           then bf16 times at the serving lengths.
   ssd_kernels
            the SSD scan kernel against its plain version at mamba2-370m
            FULL heads (H=32, P=64, N=128, chunk 64), B in {1, 4}, T=2048,
@@ -23,17 +38,29 @@ Phases, one JSON line each:
            then CUDA-event times of kernel and plain version beside the
            bound, at T=2048 and at the mamba_serve phase's prompt lengths.
   smoke    llama3.2-1b SMOKE at f32: prefill + ragged decode logits of the
-           kernel path on the card against the plain path on the CPU, and
-           the paged batcher's tokens on the card against the CPU's.
+           kernel path on the card against the plain path on the CPU, on a
+           paged and on a linear cache, and the paged and dense batchers'
+           tokens on the card against the CPU's.
   serve    the main path: llama3.2-1b FULL (16 layers, seeded random bf16
            weights) behind ContinuousBatcher(slots=16, max_len=1024,
            page 16) on 32 requests (prompts of 32-512 tokens, 32 new tokens
            each).  The launch counters are zeroed just before the run and
-           read just after; each must equal decode ticks x 16 layers.
-           Then one decode step's logits, kernel path against plain path.
+           read just after; B1 and B2 must each equal decode ticks x 16
+           layers, B4 prefill calls x 16.  Then one decode step's logits,
+           kernel path against plain path.
   profile  the same serving run again under torch.profiler: device time
            of each kernel, the decode kernel's HBM bandwidth, the device's
            busy share.
+  dense_serve
+           the same model and requests behind the dense
+           ContinuousBatcher(slots=16, max_len=1024): B3 launches must
+           equal decode ticks x 16, B4 prefill calls x 16, B1 and B2 none;
+           the tokens against the serve phase's (a reading).
+  dense_logits
+           serve's one-step logit comparison on a linear cache (B3).
+  prefill_logits
+           FULL bf16 prefill logits at every position, B=1, prompts of 512
+           and 200 tokens, kernel path (B4) against plain path.
   mamba_smoke
            mamba2-370m SMOKE at f32: prefill + decode logits of the kernel
            path on the card against the plain path on the CPU, and the
@@ -105,7 +132,7 @@ from repro_torch.configs.tcmm import TCMMConfig  # noqa: E402
 from repro_torch.core.reactive import ReactiveJob  # noqa: E402
 from repro_torch.data.sources import TrajectorySource  # noqa: E402
 from repro_torch.data.topics import MessageLog  # noqa: E402
-from repro_torch.kernels import build, ssd_scan, tcmm_assign  # noqa: E402
+from repro_torch.kernels import build, flash_attention, ssd_scan, tcmm_assign  # noqa: E402
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import PagedSpec  # noqa: E402
@@ -137,6 +164,14 @@ KERNELS = {
         source="src/repro_torch/kernels/decode_attention/csrc/paged_decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:209",
         signature=ops.SIGNATURES["paged_decode_attention"]),
+    "decode_attention": dict(
+        source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:95",
+        signature=ops.SIGNATURES["decode_attention"]),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99",
+        signature=flash_attention.ops.SIGNATURES["flash_attention"]),
     "ssd_chunked": dict(
         source="src/repro_torch/kernels/ssd_scan/csrc/ssd_chunked.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:88",
@@ -153,12 +188,14 @@ MAMBA_LAYERS = 48
 
 def reset_launches() -> None:
     ops.reset_launches()
+    flash_attention.reset_launches()
     ssd_scan.reset_launches()
     tcmm_assign.reset_launches()
 
 
 def read_launches() -> dict:
-    return {**ops.LAUNCHES, **ssd_scan.LAUNCHES, **tcmm_assign.LAUNCHES}
+    return {**ops.LAUNCHES, **flash_attention.LAUNCHES, **ssd_scan.LAUNCHES,
+            **tcmm_assign.LAUNCHES}
 
 
 def emit(phase: str, **fields) -> None:
@@ -352,6 +389,196 @@ def phase_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
     return rows
 
 
+# --- B4 and B3: flash_kernels, dense_decode_kernels ------------------------------
+
+LLAMA_HEADS = dict(h=32, hkv=8, d=64)  # llama3.2-1b FULL
+SDPA = torch.nn.functional.scaled_dot_product_attention  # timed as a yardstick only
+# (T, S, causal, window, q_offset): T = S causal with and without a window,
+# a chunk at an offset, one whose every row is masked (output exactly 0),
+# and one non-causal case
+FLASH_CASES = ([(t, t, True, w, 0) for t in (1, 32, 200, 512, 2048) for w in (0, 128)]
+               + [(64, 320, True, 0, 256), (16, 64, True, 32, 128), (200, 200, False, 0, 0)])
+
+
+def flash_inputs(seed: int, b: int, t: int, s: int, dev, dtype, ones_v: bool = False):
+    h, hkv, d = LLAMA_HEADS["h"], LLAMA_HEADS["hkv"], LLAMA_HEADS["d"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+    v = (torch.ones((b, s, hkv, d), device=dev, dtype=dtype) if ones_v else
+         torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype))
+    return q, k, v
+
+
+def kept_pairs(t: int, s: int, causal: bool, window: int, q_offset: int) -> int:
+    """(query row, key) pairs the masks keep: the work B4 must do."""
+    qpos = q_offset + np.arange(t, dtype=np.int64)
+    hi = np.minimum(s - 1, qpos) if causal else np.full(t, s - 1)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(t, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_work(b: int, t: int, s: int, causal: bool, window: int, q_offset: int,
+               elem: int) -> tuple:
+    """(bytes, operations) of one B4 call: q and out, k and v once each;
+    two products (4 operations) of length D per query head and kept pair."""
+    h, hkv, d = LLAMA_HEADS["h"], LLAMA_HEADS["hkv"], LLAMA_HEADS["d"]
+    n_bytes = b * (2 * t * h * d + 2 * s * hkv * d) * elem
+    return n_bytes, b * 4 * d * h * kept_pairs(t, s, causal, window, q_offset)
+
+
+def phase_flash_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
+    """B4 against its plain version at llama3.2-1b's heads (B = 2), f32 and
+    bf16; then bf16 times at B = 1, causal, q_offset 0, at every served
+    prompt length and at T = 2048."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for t, s, causal, window, q_offset in FLASH_CASES:
+            q, k, v = flash_inputs(seed, 2, t, s, dev, dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            out = flash_attention.flash_attention(q, k, v, **kw)
+            plain = flash_attention.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs()
+            case = dict(dtype=str(dtype), t=t, s=s, causal=causal, window=window,
+                        q_offset=q_offset, max_abs_err=err.max().item(),
+                        within_tol=bool(torch.allclose(out.float(), plain.float(), **TOL[dtype])))
+            if kept_pairs(t, s, causal, window, q_offset) == 0:
+                case["exactly_zero"] = bool((out == 0).all())
+            cases.append(case)
+    ones = []
+    for t, window in ((512, 0), (2048, 128)):
+        q, k, v = flash_inputs(seed + 1, 1, t, t, dev, torch.float32, ones_v=True)
+        out = flash_attention.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        ones.append(dict(t=t, window=window, max_abs_out_minus_1=(out - 1).abs().max().item()))
+    bad = ([c for c in cases if not c["within_tol"] or c.get("exactly_zero") is False]
+           + [o for o in ones if o["max_abs_out_minus_1"] > 1e-4])
+
+    def timing(t: int) -> dict:
+        q, k, v = flash_inputs(seed + 2, 1, t, t, dev, torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's layout
+        bnd, by = bound_ms(*flash_work(1, t, t, True, 0, 0, 2), torch.bfloat16)
+        return dict(
+            kernel_ms=time_ms(lambda: flash_attention.flash_attention(q, k, v), flush),
+            plain_ms=time_ms(lambda: flash_attention.attention_ref(q, k, v), flush),
+            library_ms=time_ms(lambda: SDPA(qt, kt, vt, is_causal=True, enable_gqa=True),
+                               flush),
+            bound_ms=bnd, bound_by=by)
+
+    lens = prompt_lengths(seed)
+    per_t = {int(t): timing(int(t)) for t in sorted(set(lens.tolist()))}
+    weights = [int((lens == t).sum()) for t in per_t]
+    main_path = {key: sum(w * r[key] for w, r in zip(weights, per_t.values())) / sum(weights)
+                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    share = {by: sum(w * r["bound_ms"] for w, r in zip(weights, per_t.values())
+                     if r["bound_by"] == by) for by in ("bytes", "operations")}
+    main_path["bound_by"] = max(share, key=share.get)
+    timings = {"main_path_per_launch": main_path, "t2048": timing(2048),
+               "main_path_by_t": {str(t): r for t, r in per_t.items()}}
+    emit("flash_kernels", cases=cases, v_all_ones=ones, timing=timings,
+         tol="f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3; v all ones (f32): "
+             "|out - 1| <= 1e-4; rows with no kept key exactly 0",
+         note="ms: CUDA events, median of 30, L2 flushed; B=1, H=32, Hkv=8, D=64, bf16, "
+              "causal, q_offset 0; main_path: mean per launch over the 32 served prompt "
+              "lengths; bound: max(bytes at 3.35 TB/s, 4*D*H*kept pairs at 989 TFLOP/s); "
+              "library: scaled_dot_product_attention(is_causal=True, enable_gqa=True) on "
+              "[B, H, T, D] copies")
+    if bad:
+        raise AssertionError(f"flash_attention differs from its plain version: {bad}")
+    return dict(**{k: main_path[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")},
+                max_abs_err=max(c["max_abs_err"] for c in cases
+                                if c["dtype"] == "torch.bfloat16"))
+
+
+def dense_decode_inputs(dtype, seed: int, dev, s: int, kv_len: np.ndarray):
+    """q [16, 32, 64] and a linear cache [16, S, 8, 64], N(0, 1)."""
+    h, hkv, d = LLAMA_HEADS["h"], LLAMA_HEADS["hkv"], LLAMA_HEADS["d"]
+    b = len(kv_len)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+    kc = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+    vc = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+    return q, kc, vc, torch.tensor(kv_len.astype(np.int32), device=dev)
+
+
+def as_pages(cache: torch.Tensor, page: int = 16):
+    """A dense cache [B, S, Hkv, D] as a pool of pages behind a table:
+    sequence b's pages are 1 + b*n .. b*n + n (page 0 the scratch page)."""
+    b, s = cache.shape[:2]
+    n = s // page
+    pool = torch.cat([cache.new_zeros((1, page) + cache.shape[2:]),
+                      cache.reshape((b * n, page) + cache.shape[2:])])
+    table = (1 + torch.arange(b * n, device=cache.device, dtype=torch.int32)).reshape(b, n)
+    return pool, table
+
+
+def phase_dense_decode_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
+    """B3 against its plain version (at min(kv_len, S), as the kernel
+    clamps) and against B2 over a paged copy of the same cache, at
+    B = 16 and llama3.2-1b's heads; then bf16 times at the serving
+    lengths."""
+    rng = np.random.default_rng(seed + 5)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (1024, 1000):
+            kv_len = rng.integers(1, s + 1, size=16)
+            kv_len[:3] = (0, s, s + 9)  # empty, full, past the cache
+            q, kc, vc, lens = dense_decode_inputs(dtype, seed, dev, s, kv_len)
+            for window in (0, 128):
+                out = ops.decode_attention(q, kc, vc, lens, window=window)
+                plain = ref.decode_attention_ref(q, kc, vc, lens.clamp(max=s), window=window)
+                torch.cuda.synchronize()
+                case = dict(dtype=str(dtype), s=s, window=window,
+                            max_abs_err=(out.float() - plain.float()).abs().max().item(),
+                            within_tol=bool(torch.allclose(out.float(), plain.float(),
+                                                           **TOL[dtype])),
+                            kv_len_0_exactly_zero=bool((out[0] == 0).all()))
+                if s % 16 == 0:
+                    kp, table = as_pages(kc)
+                    vp, _ = as_pages(vc)
+                    paged = ops.paged_decode_attention(q, kp, vp, table, lens, window=window)
+                    torch.cuda.synchronize()
+                    case["max_abs_diff_vs_paged_b2"] = (out.float() - paged.float()).abs().max().item()
+                    case["within_tol_vs_paged_b2"] = bool(torch.allclose(
+                        out.float(), paged.float(), **TOL[dtype]))
+                cases.append(case)
+    bad = [c for c in cases if not c["within_tol"] or not c["kv_len_0_exactly_zero"]
+           or c.get("within_tol_vs_paged_b2") is False]
+
+    # timing: the serving phases' lengths (prompts of 32..512 plus up to 32
+    # new tokens) in a 1024-row cache, bf16
+    served = rng.integers(32, 513, size=16) + rng.integers(0, 33, size=16)
+    q, kc, vc, lens = dense_decode_inputs(torch.bfloat16, seed + 1, dev, 1024, served)
+    b, h, d = q.shape
+    hkv = kc.shape[2]
+    rows = served.astype(np.int64).sum()
+    n_bytes = 2 * rows * hkv * d * 2 + 2 * q.numel() * 2 + 4 * b
+    bnd, by = bound_ms(n_bytes, 4 * rows * h * d, torch.bfloat16)
+    q4 = q[:, :, None, :]
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()  # SDPA's layout
+    mask = (torch.arange(1024, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    row = dict(
+        kernel_ms=time_ms(lambda: ops.decode_attention(q, kc, vc, lens), flush),
+        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, lens), flush),
+        library_ms=time_ms(lambda: SDPA(q4, kt, vt, attn_mask=mask, enable_gqa=True), flush),
+        bound_ms=bnd, bound_by=by, bytes=int(n_bytes))
+    emit("dense_decode_kernels", cases=cases, timing={"main_path": row},
+         tol="TOL (f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3), against the plain "
+             "version and against B2 on a paged copy; kv_len 0 rows exactly 0",
+         note="ms: CUDA events, median of 30, L2 flushed; B=16, S=1024, H=32, Hkv=8, D=64, "
+              "bf16, kv_len 32..544; bound: bytes of the rows below kv_len, q and out at "
+              "3.35 TB/s; library: scaled_dot_product_attention with a boolean mask from "
+              "kv_len and enable_gqa=True on [B, Hkv, S, D] copies")
+    if bad:
+        raise AssertionError(f"decode_attention differs from its plain version or B2: {bad}")
+    return dict(**{k: row[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")},
+                max_abs_err=max(c["max_abs_err"] for c in cases
+                                if c["dtype"] == "torch.bfloat16"))
+
+
 # --- phase 3 -----------------------------------------------------------------
 
 
@@ -405,8 +632,50 @@ def phase_smoke(dev, seed: int) -> None:
         counts.append((bt.preemptions, bt.steps, bt.page_pool.leaked()))
     if outputs[0] != outputs[1] or counts[0] != counts[1]:
         raise AssertionError(f"SMOKE batcher on the card differs from the CPU: {counts}")
+
+    # the same on a linear cache: B4 prefill and B3 decode on the card
+    reset_launches()
+    runs = {}
+    for name, model, params in (("card", on_card, p_card), ("cpu", on_cpu, p_cpu)):
+        d = model.device
+        logits, cache = model.prefill(params, {"tokens": prompt.to(d)},
+                                      model.init_cache(b, max_len), last_only=True)
+        for layer in cache:
+            layer["pos"] = pos.to(d)
+        runs[name] = (model, params, cache, [logits.cpu()])
+    tokens = runs["cpu"][3][0][:, -1].argmax(-1)[:, None]
+    for step in range(3):
+        for name, (model, params, cache, outs) in runs.items():
+            logits, cache = model.decode_step(params, tokens.to(model.device), cache,
+                                              (pos + step).to(model.device))
+            runs[name] = (model, params, cache, outs + [logits.cpu()])
+        tokens = runs["cpu"][3][-1][:, -1].argmax(-1)[:, None]
+    linear_worst = 0.0
+    for a, c in zip(runs["card"][3], runs["cpu"][3]):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+        linear_worst = max(linear_worst, (a - c).abs().max().item())
+    linear_launches = {n: read_launches()[n] for n in ("flash_attention", "decode_attention")}
+    if linear_launches != {"flash_attention": cfg.num_layers,
+                           "decode_attention": 3 * cfg.num_layers}:
+        raise AssertionError(f"SMOKE linear-cache launches: {linear_launches}")
+
+    dense_outputs, dense_ticks = [], []
+    for model, params in ((on_card, p_card), (on_cpu, p_cpu)):
+        bt = ContinuousBatcher(model, params, slots=4, max_len=32)
+        reqs = [Request(prompt=[i % 5 + 1, i % 3 + 2, 4] * (1 + i % 4), max_new_tokens=10)
+                for i in range(8)]
+        for r in reqs:
+            bt.submit(r)
+        bt.run_until_drained()
+        dense_outputs.append([r.output for r in reqs])
+        dense_ticks.append(bt.steps)
+    if dense_outputs[0] != dense_outputs[1] or dense_ticks[0] != dense_ticks[1]:
+        raise AssertionError(f"SMOKE dense batcher on the card differs from the CPU: "
+                             f"{dense_ticks}")
     emit("smoke", logits_max_abs_diff=worst, tol="rtol=atol=1e-4 (f32, TF32 off)",
-         batcher_tokens_equal=True, preemptions=counts[0][0], ticks=counts[0][1])
+         batcher_tokens_equal=True, preemptions=counts[0][0], ticks=counts[0][1],
+         linear_logits_max_abs_diff=linear_worst, linear_launches=linear_launches,
+         dense_batcher_tokens_equal=True, dense_ticks=dense_ticks[0])
 
 
 # --- phase 4 / 5 ------------------------------------------------------------------
@@ -458,22 +727,17 @@ def phase_serve(model, params, cfg, seed: int) -> tuple:
     wall = time.perf_counter() - t0
     launches = read_launches()                # read right after the run
 
-    if len(batcher.completed) != len(reqs):
-        raise AssertionError(f"{len(batcher.completed)} of {len(reqs)} requests completed")
-    for r in reqs:
-        if r.fail_reason is not None or len(r.output) != 32:
-            raise AssertionError(f"request {r.req_id}: {r.fail_reason}, {r.output}")
-        if not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.req_id}: token out of range")
+    check_served(batcher, reqs, cfg)
     if batcher.page_pool.leaked() != 0 or batcher.page_pool.in_use != 0:
         raise AssertionError("pages leaked")
     for name in LLAMA_KERNELS:
         if launches[name] == 0 or launches[name] != batcher.steps * LAYERS:
             raise AssertionError(
                 f"{name}: {launches[name]} launches for {batcher.steps} ticks x {LAYERS} layers")
+    check_prefill_launches(launches, len(prefill_s))
     stats = dict(
-        requests=len(reqs), ticks=batcher.steps, decoded_tokens=decoded,
-        launches=launches, preemptions=batcher.preemptions,
+        requests=len(reqs), ticks=batcher.steps, prefill_calls=len(prefill_s),
+        decoded_tokens=decoded, launches=launches, preemptions=batcher.preemptions,
         leaked_pages=batcher.page_pool.leaked(),
         page_high_watermark=batcher.page_pool.high_watermark,
         decode_tokens_per_s=decoded / sum(decode_s),
@@ -482,24 +746,118 @@ def phase_serve(model, params, cfg, seed: int) -> tuple:
         end_to_end_tokens_per_s=sum(len(r.output) for r in reqs) / wall, wall_s=wall,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
+    return stats, [r.output for r in reqs]
+
+
+def check_served(batcher, reqs, cfg) -> None:
+    """Every request completed with 32 tokens in the vocabulary."""
+    if len(batcher.completed) != len(reqs):
+        raise AssertionError(f"{len(batcher.completed)} of {len(reqs)} requests completed")
+    for r in reqs:
+        if r.fail_reason is not None or len(r.output) != 32:
+            raise AssertionError(f"request {r.req_id}: {r.fail_reason}, {r.output}")
+        if not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.req_id}: token out of range")
+
+
+def check_prefill_launches(launches: dict, prefill_calls: int) -> None:
+    """Every prefill (prompts of 32 tokens or more) ran B4 in every layer."""
+    if prefill_calls == 0 or launches["flash_attention"] != prefill_calls * LAYERS:
+        raise AssertionError(f"flash_attention: {launches['flash_attention']} launches for "
+                             f"{prefill_calls} prefill calls x {LAYERS} layers")
+
+
+def dense_batcher(model, params):
+    return ContinuousBatcher(model, params, slots=16, max_len=1024)  # dense mode
+
+
+def phase_dense_serve(model, params, cfg, seed: int, paged_outputs: list) -> dict:
+    """The dense path: the same 32 requests behind the dense batcher, B4 in
+    every prefill and B3 in every decode tick; then the tokens against
+    the paged serve phase's."""
+    warm = dense_batcher(model, params)
+    for r in full_requests(cfg, seed + 100)[:2]:
+        r.max_new_tokens = 4
+        warm.submit(r)
+    warm.run_until_drained()
+    del warm
+
+    batcher = dense_batcher(model, params)
+    prefill_s, decode_s = [], []
+    batcher.prefill_step = timed(batcher.prefill_step, prefill_s)
+    batcher.decode_step = timed(batcher.decode_step, decode_s)
+    reqs = full_requests(cfg, seed)
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                          # main path: counters from zero
+    t0 = time.perf_counter()
+    decoded = batcher.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()                # read right after the run
+
+    check_served(batcher, reqs, cfg)
+    if launches["decode_attention"] == 0 or \
+            launches["decode_attention"] != batcher.steps * LAYERS:
+        raise AssertionError(f"decode_attention: {launches['decode_attention']} launches for "
+                             f"{batcher.steps} ticks x {LAYERS} layers")
+    check_prefill_launches(launches, len(prefill_s))
+    if launches["paged_kv_append"] or launches["paged_decode_attention"]:
+        raise AssertionError(f"the dense path reached the paged kernels: {launches}")
+    stats = dict(
+        requests=len(reqs), ticks=batcher.steps, prefill_calls=len(prefill_s),
+        decoded_tokens=decoded, launches=launches,
+        decode_tokens_per_s=decoded / sum(decode_s),
+        decode_ms_per_tick=1e3 * statistics.median(decode_s),
+        prefill_ms_per_request=1e3 * statistics.mean(prefill_s),
+        end_to_end_tokens_per_s=sum(len(r.output) for r in reqs) / wall, wall_s=wall,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    stats["agreement_with_paged"] = token_agreement(model, params, cfg, reqs, paged_outputs)
     return stats
 
 
-def phase_logits(model, params, cfg, seed: int) -> dict:
-    """One decode step, kernel path against plain path, from one state."""
+def token_agreement(model, params, cfg, reqs, other: list) -> dict:
+    """A reading, not a gate: requests whose tokens equal ``other``'s and,
+    at each first divergence, the plain path's top-two margin there."""
+    plain = build_model(cfg, compute_dtype=model.compute_dtype, device=model.device,
+                        use_kernels=False)
+    diverged = []
+    for r, theirs in zip(reqs, other):
+        if r.output == theirs:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(r.output, theirs)) if a != b)
+        tokens = torch.tensor([r.prompt + r.output[:i]], device=model.device)
+        with torch.inference_mode():
+            logits, _ = plain.prefill(params, {"tokens": tokens},
+                                      plain.init_cache(1, tokens.shape[1]), last_only=True)
+        top2 = logits[0, -1].topk(2).values
+        diverged.append(dict(request=r.req_id, first_divergence=i,
+                             plain_top2_margin=(top2[0] - top2[1]).item()))
+    return dict(requests=len(reqs), equal=len(reqs) - len(diverged), diverged=diverged)
+
+
+def phase_logits(model, params, cfg, seed: int, paged: bool = True) -> dict:
+    """One decode step, kernel path against plain path, from one state, on
+    a paged cache (B1, B2) or a linear one (B3)."""
     plain = build_model(cfg, compute_dtype=model.compute_dtype, device=model.device,
                         use_kernels=False)
     b, t, max_len, page = 16, 256, 1024, 16
     n_slot = max_len // page
-    spec = PagedSpec(num_pages=1 + b * n_slot, page_size=page)
     rng = np.random.default_rng(seed + 7)
     dev = model.device
     prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(b, t)), device=dev)
     table = torch.tensor((1 + rng.permutation(b * n_slot)).reshape(b, n_slot).astype(np.int32),
                          device=dev)
-    cache = model.init_cache(b, max_len, paged=spec)
-    for layer in cache:
-        layer["page_table"] = table
+    if paged:
+        cache = model.init_cache(b, max_len, paged=PagedSpec(num_pages=1 + b * n_slot,
+                                                              page_size=page))
+        for layer in cache:
+            layer["page_table"] = table
+    else:
+        cache = model.init_cache(b, max_len)
     with torch.inference_mode():
         logits, cache = model.prefill(params, {"tokens": prompt}, cache, last_only=True)
         pos = torch.tensor(rng.integers(1, t + 1, size=b).astype(np.int32), device=dev)
@@ -518,6 +876,34 @@ def phase_logits(model, params, cfg, seed: int) -> dict:
                 plain_max_abs=plain_f.abs().max().item(), greedy_agreement=agree,
                 min_top2_margin=(top2[:, 0] - top2[:, 1]).min().item(),
                 finite=bool(torch.isfinite(k_logits).all()))
+
+
+def phase_prefill_logits(model, params, cfg, seed: int) -> dict:
+    """Logits at every position of a B = 1 prefill on a linear cache, the
+    kernel path (B4) against the plain path, prompts of 512 and 200."""
+    plain = build_model(cfg, compute_dtype=model.compute_dtype, device=model.device,
+                        use_kernels=False)
+    rng = np.random.default_rng(seed + 13)
+    out = {}
+    for t in (512, 200):
+        prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(1, t)), device=model.device)
+        with torch.inference_mode():
+            k_logits, _ = model.prefill(params, {"tokens": prompt}, model.init_cache(1, 1024))
+            p_logits, _ = plain.prefill(params, {"tokens": prompt}, plain.init_cache(1, 1024))
+        out[f"t{t}"] = compare_logits(k_logits[0].float(), p_logits[0].float())
+        del k_logits, p_logits
+    return out
+
+
+def check_prefill_logits(logits: dict) -> None:
+    """LOGIT_TOL on every position, and the greedy token equal wherever the
+    plain top-two margin exceeds 2 max|diff|."""
+    failed = [key for key, r in logits.items()
+              if not r["finite"] or r["max_abs_diff"] > LOGIT_TOL["max_abs"] * r["ref_rms"]
+              or r["rms_diff"] > LOGIT_TOL["rms"] * r["ref_rms"]
+              or r["greedy_equal_where_clear"] != r["clear_positions"]]
+    if failed:
+        raise AssertionError(f"prefill logits, B4 against plain, fail {failed}: {logits}")
 
 
 def check_logits(logits: dict) -> None:
@@ -566,8 +952,8 @@ def device_times(prof, wall: float) -> dict:
         us = dev_us(evt)
         busy_us += us
         top.append((us / 1e3, evt.count, evt.key[:90]))
-        for name in KERNELS:
-            if f"{name}_kernel" in evt.key:
+        for name in KERNELS:  # "::" keeps decode_attention apart from paged_...
+            if f"::{name}_kernel" in evt.key:
                 per_kernel[name] = dict(calls=evt.count, device_ms=us / 1e3)
     # the profiler slows the host, so the busy share under it is a lower
     # bound; device_s against an unprofiled run's wall_s is the other view
@@ -810,19 +1196,15 @@ def phase_mamba_smoke(dev, seed: int) -> None:
          batcher_tokens_equal=True, ticks=ticks[0])
 
 
-def mamba_batcher(model, params):
-    return ContinuousBatcher(model, params, slots=16, max_len=1024)  # dense mode
-
-
 def phase_mamba_serve(model, params, cfg, seed: int) -> dict:
-    warm = mamba_batcher(model, params)
+    warm = dense_batcher(model, params)
     for r in full_requests(cfg, seed + 100)[:2]:
         r.max_new_tokens = 4
         warm.submit(r)
     warm.run_until_drained()
     del warm
 
-    batcher = mamba_batcher(model, params)
+    batcher = dense_batcher(model, params)
     prefill_s, decode_s = [], []
     batcher.prefill_step = timed(batcher.prefill_step, prefill_s)
     batcher.decode_step = timed(batcher.decode_step, decode_s)
@@ -1197,6 +1579,8 @@ def main() -> int:
     smi, ptxas = phase_build()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     rows = phase_kernels(dev, args.seed, flush)
+    rows["flash_attention"] = phase_flash_kernels(dev, args.seed, flush)
+    rows["decode_attention"] = phase_dense_decode_kernels(dev, args.seed, flush)
     rows["ssd_chunked"] = phase_ssd_kernels(dev, args.seed, flush, ptxas.get("ssd_chunked"))
     del flush
     phase_smoke(dev, args.seed)
@@ -1207,7 +1591,7 @@ def main() -> int:
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    serve = phase_serve(model, params, cfg, args.seed)
+    serve, paged_outputs = phase_serve(model, params, cfg, args.seed)
     logits = phase_logits(model, params, cfg, args.seed)
     emit("serve", init_s=init_s, **serve, logits_kernel_vs_plain=logits,
          logits_tol=f"max|diff| <= {LOGIT_TOL['max_abs']} * rms(plain), rms(diff) <= "
@@ -1218,6 +1602,19 @@ def main() -> int:
     # the trace over that run's wall time estimates its device busy share
     prof["device_s_over_serve_wall"] = prof["device_s"] / serve["wall_s"]
     emit("profile", **prof)
+    dense = phase_dense_serve(model, params, cfg, args.seed, paged_outputs)
+    emit("dense_serve", **dense,
+         note="dense ContinuousBatcher(slots=16, max_len=1024): B4 in every prefill, B3 in "
+              "every decode tick; agreement_with_paged is a reading, not a gate")
+    dense_logits = phase_logits(model, params, cfg, args.seed, paged=False)
+    emit("dense_logits", **dense_logits, logits_tol="as in serve")
+    check_logits(dense_logits)
+    prefill_logits = phase_prefill_logits(model, params, cfg, args.seed)
+    emit("prefill_logits", **prefill_logits,
+         gates=f"max|diff| <= {LOGIT_TOL['max_abs']} * rms(plain), rms(diff) <= "
+               f"{LOGIT_TOL['rms']} * rms(plain), greedy equal wherever the plain top-2 "
+               "margin exceeds 2 max|diff| (bf16, B=1, every position)")
+    check_prefill_logits(prefill_logits)
     del model, params
     gc.collect()  # the profile's batcher and its counting wrapper form a cycle
     torch.cuda.empty_cache()
@@ -1238,7 +1635,7 @@ def main() -> int:
               "margin exceeds 2 max|diff|, at >= clear_share of the positions.  bf16 (48 "
               "layers): rms(diff) <= bf16_spread * rms(plain chunk 32 - plain chunk 64)")
     check_mamba_logits(mlogits)
-    mprof = profile_serving(mamba_batcher(mmodel, mparams), full_requests(mcfg, args.seed))
+    mprof = profile_serving(dense_batcher(mmodel, mparams), full_requests(mcfg, args.seed))
     ssd = mprof["kernels"].get("ssd_chunked")
     mprof["ssd_chunked_ms_per_call"] = ssd["device_ms"] / ssd["calls"] if ssd else None
     mprof["device_s_over_serve_wall"] = mprof["device_s"] / mserve["wall_s"]
@@ -1257,6 +1654,8 @@ def main() -> int:
     emit("tcmm_pipeline", **pipe, nvidia_smi=smi, elapsed_s=time.perf_counter() - started)
 
     main_path_launches = {**{n: serve["launches"][n] for n in LLAMA_KERNELS},
+                          **{n: dense["launches"][n]
+                             for n in ("decode_attention", "flash_attention")},
                           "ssd_chunked": mserve["launches"]["ssd_chunked"],
                           "tcmm_assign": pipe["launches"]}
     kernels = []

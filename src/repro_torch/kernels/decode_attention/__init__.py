@@ -1,5 +1,6 @@
 from repro_torch.kernels.decode_attention.ops import (
     LAUNCHES,
+    decode_attention,
     paged_decode_attention,
     paged_kv_append,
     reset_launches,

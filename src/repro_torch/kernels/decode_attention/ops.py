@@ -1,5 +1,5 @@
-"""Public wrappers for the paged decode kernels: validation, dispatch and
-launch counts.
+"""Public wrappers for the decode kernels, paged and dense: validation,
+dispatch and launch counts.
 
 Dispatch follows the tensors' device.  CPU tensors go to the plain
 PyTorch versions in ``ref.py``; CUDA tensors launch the hand-written
@@ -13,8 +13,12 @@ Validation keeps the reference wrapper's contract
   * ``kv_len`` / ``pos`` / ``page_table`` must be integer-typed; a float
     length is a ``TypeError``, never a silent cast.
   * On the CPU, out-of-range values raise ``ValueError``: ``kv_len >
-    n_pages * page`` would attend rows that do not exist, and a page id
-    past the pool would read another allocation.
+    n_pages * page`` (or ``> S`` for a dense cache) would attend rows
+    that do not exist, and a page id past the pool would read another
+    allocation.
+  * The dense wrapper takes no ``block_k``: the kernel picks its own
+    chunks, so S need not be a multiple of the TPU's 128 lanes
+    (``align_block_k``, src/repro/kernels/decode_attention/ops.py:63-80).
   * On CUDA the values are not inspected.  Reading them would cost one
     device-to-host sync per layer per decode tick.  The kernels clamp on
     the device instead, as the reference clamps traced values
@@ -42,11 +46,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref,
     paged_decode_attention_ref,
     paged_kv_append_ref,
 )
 
-LAUNCHES = {"paged_kv_append": 0, "paged_decode_attention": 0}
+LAUNCHES = {"paged_kv_append": 0, "paged_decode_attention": 0, "decode_attention": 0}
 
 # argtypes of each C entry point: every pointer and the stream as
 # c_void_p (a bare int would be cut to 32 bits), sizes as c_int.
@@ -63,6 +68,12 @@ SIGNATURES = {
         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # dtype batch H Hkv D
         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # num_pages page n_pages window
         _c.c_float, _c.c_void_p,                             # sm_scale stream
+    ],
+    "decode_attention": [
+        _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q k_cache v_cache
+        _c.c_void_p, _c.c_void_p,                            # kv_len out
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # dtype batch S H Hkv
+        _c.c_int, _c.c_int, _c.c_float, _c.c_void_p,         # D window sm_scale stream
     ],
 }
 
@@ -117,7 +128,7 @@ def _check_cuda_operands(data, pools) -> None:
             raise TypeError(f"dtype mismatch: {t.dtype} vs pool {dtype}")
     for t in pools:
         if not t.is_contiguous():
-            raise ValueError("page pools must be contiguous (written in place)")
+            raise ValueError("page pools and caches must be contiguous")
 
 
 def _int32(t: torch.Tensor) -> torch.Tensor:
@@ -131,6 +142,51 @@ def _stream(dev: torch.device) -> int:
 def _check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, H, D]
+    k_cache: torch.Tensor,  # [B, S, Hkv, D]
+    v_cache: torch.Tensor,  # [B, S, Hkv, D]
+    kv_len: torch.Tensor,   # [B] int
+    window: int = 0,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token GQA attention over a dense cache -> [B, H, D]: each
+    sequence attends its first ``kv_len`` rows (with ``window``, the last
+    ``window`` of them); ``kv_len == 0`` gives exactly zero."""
+    if q.ndim != 3:
+        raise ValueError("q must be [B, H, D] (one token per sequence)")
+    if q.shape[1] % k_cache.shape[2] != 0:
+        raise ValueError("num_heads must be a multiple of num_kv_heads")
+    if (k_cache.ndim != 4 or k_cache.shape != v_cache.shape
+            or k_cache.shape[0] != q.shape[0] or k_cache.shape[3] != q.shape[2]):
+        raise ValueError("k_cache / v_cache must be [B, S, Hkv, D] matching q")
+    if kv_len.shape != (q.shape[0],):
+        raise ValueError(f"kv_len must be [B], got {tuple(kv_len.shape)}")
+    _require_int("kv_len", kv_len)
+    s = k_cache.shape[1]
+    dev = _device_of(q, k_cache, v_cache, kv_len)
+    if dev.type == "cpu":
+        _check_range("kv_len", kv_len, s)
+        return decode_attention_ref(q, k_cache, v_cache, kv_len, window=window,
+                                    sm_scale=sm_scale)
+
+    _check_cuda_operands((q,), (k_cache, v_cache))
+    b, h, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    q = q.contiguous()
+    lens = _int32(kv_len)
+    out = torch.empty_like(q)
+    fn = build.load("decode_attention", SIGNATURES["decode_attention"])
+    err = fn(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), _DTYPE_CODE[q.dtype], b, s, h, k_cache.shape[2], d, int(window),
+        float(scale), _stream(dev),
+    )
+    _check_launch("decode_attention", err)
+    LAUNCHES["decode_attention"] += 1
+    return out
 
 
 def paged_decode_attention(

@@ -1,6 +1,17 @@
 """Layer library of the dense decoder: RMSNorm, RoPE, GQA attention over
 a paged or linear KV cache, SwiGLU MLP, embeddings.
 
+Attention routes (``attention``):
+  * a fresh prefill (``fresh_prefill``: every row starts at position 0 on
+    an empty cache) of more than one token with ``use_kernels``: the
+    chunk is written to the cache, then the flash attention kernel (B4)
+    attends over the chunk's own keys, causal from position 0;
+  * a decode step (one token) with ``use_kernels``: the dense decode
+    kernel (B3) over a linear cache, the paged append and decode kernels
+    (B1, B2) over a paged one;
+  * anything else: the chunk is written to the cache and
+    ``_dense_attention`` attends over it, the reference semantics.
+
 Plain functions over dicts of tensors, in the reference package's
 layouts (``wq [d, h, hd]``, ``wo [h, hd, d]``, caches ``[P, page, Hkv,
 hd]``), so each function can be held against its counterpart.  Norm
@@ -22,10 +33,12 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ArchConfig, AttentionKind, LayerSpec
 from repro_torch.kernels.decode_attention import (
+    decode_attention,
     gather_pages,
     paged_decode_attention,
     paged_kv_append,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -139,8 +152,13 @@ def attention(
     cache: Params,            # paged {"k_pages","v_pages","page_table","pos"}
                               # or linear {"k","v": [B, S, Hkv, hd], "pos"}
     use_kernels: bool = True,
+    fresh_prefill: bool = False,
 ) -> Tuple[torch.Tensor, Params]:
     """Causal GQA self-attention against a KV cache.
+
+    ``fresh_prefill`` states that every row starts at position 0 on an
+    empty cache (``Model.prefill``), so the chunk's own keys are all it
+    may attend: the flash kernel's causal mask at ``q_offset=0``.
 
     Returns (output [B, Tq, D], cache with the chunk written and ``pos``
     advanced by Tq)."""
@@ -148,16 +166,17 @@ def attention(
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     b, tq, _ = x.shape
     window = spec.window if spec.attention == AttentionKind.SLIDING else 0
+    flash = use_kernels and fresh_prefill and tq > 1
 
     q = torch.einsum("btd,dhk->bthk", x, params["wq"])
     k = torch.einsum("btd,dhk->bthk", x, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, params["wv"])
+    v = torch.einsum("btd,dhk->bthk", x, params["wv"]).contiguous()  # B4 takes contiguous
     q = rope(q, positions, cfg.rope_theta, hd)
     k = rope(k, positions, cfg.rope_theta, hd)
 
     if "page_table" in cache:
         out, new_cache = _paged_attention(q, k, v, positions, window, cache,
-                                          use_kernels)
+                                          use_kernels, flash)
     else:
         # Linear cache: write the chunk at each row's own position (ragged
         # under continuous batching).  The start is clamped so the chunk
@@ -169,11 +188,19 @@ def attention(
         idx = rows[:, :, None, None].expand(b, tq, hkv, hd)
         cache_k.scatter_(1, idx, k.to(cache_k.dtype))
         cache_v.scatter_(1, idx, v.to(cache_v.dtype))
-        kv_pos = torch.arange(s, dtype=positions.dtype,
-                              device=x.device)[None, :].expand(b, s)
-        valid = kv_pos < (cache_pos[:, None] + tq)
-        qg = q.reshape(b, tq, hkv, h // hkv, hd)
-        out = _dense_attention(qg, cache_k, cache_v, positions, kv_pos, valid, window)
+        if flash:
+            out = flash_attention(q, k, v, causal=True, window=window)
+        elif tq == 1 and use_kernels:
+            # kv_len = pos + 1 is the causal limit kv_pos <= pos and the
+            # valid prefix kv_pos < pos + 1 at once
+            out = decode_attention(q[:, 0], cache_k, cache_v, cache_pos + 1, window=window)
+            out = out[:, None].to(v.dtype)
+        else:
+            kv_pos = torch.arange(s, dtype=positions.dtype,
+                                  device=x.device)[None, :].expand(b, s)
+            valid = kv_pos < (cache_pos[:, None] + tq)
+            qg = q.reshape(b, tq, hkv, h // hkv, hd)
+            out = _dense_attention(qg, cache_k, cache_v, positions, kv_pos, valid, window)
         new_cache = {"k": cache_k, "v": cache_v, "pos": cache_pos + tq}
 
     out = out.reshape(b, tq, h, hd)
@@ -213,14 +240,17 @@ def _paged_attention(
     window: int,
     cache: Params,
     use_kernels: bool,
+    flash: bool,
 ) -> Tuple[torch.Tensor, Params]:
     """Attention against a paged KV cache.
 
     Decode (Tq == 1) with ``use_kernels`` runs the two kernels: the
     in-place append into the page the slot's table points at, then
-    flash-decoding that follows the page table.  Prefill (Tq > 1), and
-    decode with ``use_kernels=False``, scatter into the pool and attend
-    over the gathered dense view: the reference semantics."""
+    flash-decoding that follows the page table.  Otherwise the chunk is
+    scattered into the pool; with ``flash`` (a fresh prefill) the flash
+    kernel then attends over the chunk's own keys, and without it the
+    chunk attends over the gathered dense view: the reference
+    semantics."""
     b, tq, h, hd = q.shape
     hkv = k.shape[2]
     k_pages, v_pages = cache["k_pages"], cache["v_pages"]
@@ -249,13 +279,16 @@ def _paged_attention(
         flat_idx = (page_ids.long() * page + (pos_bt % page).long()).reshape(-1)
         _scatter_to_pages(k_pages, k.reshape(b * tq, hkv, hd), flat_idx)
         _scatter_to_pages(v_pages, v.reshape(b * tq, hkv, hd), flat_idx)
-        k_dense = gather_pages(k_pages, page_table)
-        v_dense = gather_pages(v_pages, page_table)
-        kv_pos = torch.arange(s_slot, dtype=positions.dtype,
-                              device=q.device)[None, :].expand(b, s_slot)
-        valid = kv_pos < kv_len[:, None]
-        qg = q.reshape(b, tq, hkv, h // hkv, hd)
-        out = _dense_attention(qg, k_dense, v_dense, positions, kv_pos, valid, window)
+        if flash:
+            out = flash_attention(q, k, v, causal=True, window=window)
+        else:
+            k_dense = gather_pages(k_pages, page_table)
+            v_dense = gather_pages(v_pages, page_table)
+            kv_pos = torch.arange(s_slot, dtype=positions.dtype,
+                                  device=q.device)[None, :].expand(b, s_slot)
+            valid = kv_pos < kv_len[:, None]
+            qg = q.reshape(b, tq, hkv, h // hkv, hd)
+            out = _dense_attention(qg, k_dense, v_dense, positions, kv_pos, valid, window)
 
     new_cache = {
         "k_pages": k_pages,

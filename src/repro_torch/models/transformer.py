@@ -61,6 +61,7 @@ def apply_block(
     cfg: ArchConfig,
     cache: Params,
     use_kernels: bool,
+    fresh_prefill: bool = False,
 ) -> Tuple[torch.Tensor, Params]:
     h = L.rms_norm(x, params["norm_attn"], cfg.norm_eps)
     if spec.is_mamba:
@@ -68,7 +69,7 @@ def apply_block(
         new_cache = {"mamba": mc}
     else:
         y, new_cache = L.attention(params["attn"], h, positions, cfg, spec, cache,
-                                   use_kernels)
+                                   use_kernels, fresh_prefill)
     x = x + y
     if spec.ffn != FFNKind.NONE:
         h = L.rms_norm(x, params["norm_ffn"], cfg.norm_eps)
@@ -112,11 +113,15 @@ def forward(
     use_kernels: bool = True,
     compute_dtype=torch.bfloat16,
     logits_positions: str = "all",  # "all" | "last"
+    fresh_prefill: bool = False,
 ) -> Tuple[torch.Tensor, List[Params]]:
     """Returns (logits [B, T or 1, V] f32, per-layer caches).
 
     ``logits_positions="last"`` unembeds only the final position, the
-    serving-prefill path."""
+    serving-prefill path.  ``fresh_prefill`` states that ``start_pos`` is
+    0 in every row and the caches are empty, as ``Model.prefill``
+    guarantees; only then may attention take the flash kernel, whose
+    query offset is one number for the whole batch."""
     b, t = tokens.shape
     x = L.embed(params["embed"], tokens, cfg).to(compute_dtype)
     positions = (start_pos.to(torch.int32)[:, None]
@@ -124,7 +129,7 @@ def forward(
     new_cache = []
     for i, (layer_params, layer_cache) in enumerate(zip(params["layers"], cache)):
         x, nc = apply_block(layer_params, cfg.layer_spec(i), x, positions, cfg,
-                            layer_cache, use_kernels)
+                            layer_cache, use_kernels, fresh_prefill)
         new_cache.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_positions == "last":

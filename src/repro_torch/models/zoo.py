@@ -45,10 +45,11 @@ class Model:
     cfg: ArchConfig
     compute_dtype: torch.dtype = torch.bfloat16
     device: Union[str, torch.device] = "cuda"
-    # Decode attention and the Mamba prefill scan through the CUDA kernels
-    # (their plain versions on the CPU); False takes the scatter + gather
-    # + dense-attention path and the plain chunked scan instead, the
-    # reference semantics the kernel path is held against.
+    # Attention (flash prefill, dense and paged decode) and the Mamba
+    # prefill scan through the CUDA kernels (their plain versions on the
+    # CPU); False takes the scatter + gather + dense-attention path and the
+    # plain chunked scan instead, the reference semantics the kernel path
+    # is held against.
     use_kernels: bool = True
 
     def __post_init__(self):
@@ -75,12 +76,25 @@ class Model:
         cache: List[Params],
         last_only: bool = False,
     ) -> Tuple[torch.Tensor, List[Params]]:
+        """Every row starts at position 0, on an empty ``cache``: a fresh
+        prefill, which attention may serve with the flash kernel.
+
+        Requires every attention layer's ``cache["pos"]`` to be 0, as
+        ``init_cache`` makes it: the flash kernel attends over the chunk
+        alone, so a cache that already holds rows would give other logits
+        than the plain path.  A CPU cache is checked (``ValueError``); a
+        card cache is not, since reading it would sync the device."""
+        for i, layer in enumerate(cache):
+            pos = layer.get("pos")
+            if pos is not None and pos.device.type == "cpu" and bool((pos != 0).any()):
+                raise ValueError(
+                    f"prefill needs an empty cache; layer {i} has pos {pos.tolist()}")
         tokens = batch["tokens"]
         start = torch.zeros((tokens.shape[0],), dtype=torch.int32, device=tokens.device)
         return T.forward(
             params, self.cfg, tokens, cache, start,
             use_kernels=self.use_kernels, compute_dtype=self.compute_dtype,
-            logits_positions="last" if last_only else "all",
+            logits_positions="last" if last_only else "all", fresh_prefill=True,
         )
 
     def decode_step(

@@ -18,7 +18,10 @@ The batcher keeps host (numpy) copies of every index the decode kernels
 read: the slot positions, the page tables and the device cache
 positions.  The kernel wrappers do not inspect CUDA tensors, since that
 would sync once per layer per tick, so the range check happens here,
-once per tick, on the host copies.
+once per tick, on the host copies.  In both modes an idle slot rides
+every decode tick and its cache position advances; it is reset to 0
+when the slot frees and whenever it would leave the cache (the page
+table row, or ``max_len`` rows of a linear cache).
 """
 
 from __future__ import annotations
@@ -117,10 +120,14 @@ class ContinuousBatcher:
             )
             self._table_dirty = False
             self.slot_pages: List[List[int]] = [[] for _ in range(slots)]
-            # host copy of the device cache ``pos`` (the same in every
-            # layer): an idle slot still rides the decode step, so its
-            # device position advances every tick.
-            self._cache_pos = np.zeros((slots,), dtype=np.int64)
+        # host copy of the device cache ``pos`` (the same in every
+        # attention layer): an idle slot still rides the decode step, so
+        # its device position advances every tick.
+        self._cache_pos = np.zeros((slots,), dtype=np.int64)
+        # rows of the cache a position may index: the page-table row, or
+        # the linear cache's max_len
+        self._pos_cap = (paged.pages_per_slot(max_len) * paged.page_size
+                         if paged is not None else max_len)
         # requests that could not be admitted for lack of pages, or were
         # preempted mid-decode, wait here ahead of the queue, sorted by
         # arrival, until a finish or preemption frees pages.
@@ -162,6 +169,7 @@ class ContinuousBatcher:
             )
             for full, row in zip(self.cache, row_cache):
                 _write_row(full, row, slot)
+            self._cache_pos[slot] = len(req.prompt)
         first = int(next_tok[0])
         self.active[slot] = req
         self.positions[slot] = len(req.prompt)
@@ -205,23 +213,25 @@ class ContinuousBatcher:
         self._table_dirty = True
         return next_tok
 
-    def _release_pages(self, slot: int) -> None:
-        if self.paged is None:
-            return
-        if self.slot_pages[slot]:
-            self.page_pool.free(self.slot_pages[slot])
-            self.slot_pages[slot] = []
-        self._page_table[slot] = 0  # back to the scratch page
-        self._table_dirty = True
+    def _release_slot(self, slot: int) -> None:
+        """Free a slot's pages (paged mode) and reset its cache position."""
+        if self.paged is not None:
+            if self.slot_pages[slot]:
+                self.page_pool.free(self.slot_pages[slot])
+                self.slot_pages[slot] = []
+            self._page_table[slot] = 0  # back to the scratch page
+            self._table_dirty = True
         self._reset_slot_pos(slot)
 
     def _reset_slot_pos(self, slot: int) -> None:
-        """Zero the device-cache decode position of a freed slot.  An empty
-        slot still rides the decode step (shapes are static), so its cache
+        """Zero the device-cache decode position of a freed slot in every
+        attention layer (Mamba layers keep no position).  An empty slot
+        still rides the decode step (shapes are static), so its cache
         ``pos`` advances every tick; resetting keeps it inside its table
-        row between admissions."""
+        row, or its linear cache, between admissions."""
         for layer in self.cache:
-            layer["pos"][slot] = 0
+            if "pos" in layer:
+                layer["pos"][slot] = 0
         self._cache_pos[slot] = 0
 
     def _sync_page_table(self) -> None:
@@ -236,15 +246,17 @@ class ContinuousBatcher:
     def _check_kernel_indices(self) -> None:
         """Host range check of what the decode kernels will index with,
         once per tick.  An idle slot whose device position is about to
-        leave its table row is reset first."""
-        cap = self._page_table.shape[1] * self.paged.page_size
+        leave its table row, or its linear cache, is reset first."""
+        cap = self._pos_cap
         for slot in np.flatnonzero(self._cache_pos >= cap):
             if self.active[slot] is not None:
                 raise RuntimeError(
                     f"slot {slot} decodes at position {self._cache_pos[slot]} "
-                    f"past its page-table row ({cap} rows)"
+                    f"past its cache ({cap} rows)"
                 )
             self._reset_slot_pos(int(slot))
+        if self.paged is None:
+            return
         if self._page_table.min() < 0 or self._page_table.max() >= self.paged.num_pages:
             raise ValueError(
                 f"page table holds ids outside [0, {self.paged.num_pages})"
@@ -277,7 +289,7 @@ class ContinuousBatcher:
         self.outputs[slot] = []
         self.budgets[slot] = 0
         self.positions[slot] = 0
-        self._release_pages(slot)
+        self._release_slot(slot)
         self.preemptions += 1
         if req is not None:
             req.reset_for_readmission()
@@ -314,7 +326,7 @@ class ContinuousBatcher:
         self.active[slot] = None
         self.outputs[slot] = []
         self.budgets[slot] = 0
-        self._release_pages(slot)
+        self._release_slot(slot)
 
     def _fail(self, req: Request, reason: str, now: float) -> None:
         req.fail_reason = reason
@@ -376,9 +388,8 @@ class ContinuousBatcher:
         self._ensure_pages()
         if self.occupancy() == 0:
             return 0
-        if self.paged is not None:
-            self._sync_page_table()
-            self._check_kernel_indices()
+        self._sync_page_table()
+        self._check_kernel_indices()
 
         tokens = torch.tensor(self.cur_tokens, device=self.device)
         positions = torch.tensor(self.positions, device=self.device)
@@ -386,8 +397,7 @@ class ContinuousBatcher:
             self.params, tokens, self.cache, positions
         )
         next_np = next_tok.cpu().numpy()
-        if self.paged is not None:
-            self._cache_pos += 1
+        self._cache_pos += 1
         decoded = 0
         for slot in range(self.slots):
             if self.active[slot] is None:

@@ -8,7 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ssd_scan, tcmm_assign  # noqa: E402
+from repro_torch.kernels import flash_attention, ssd_scan, tcmm_assign  # noqa: E402
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 
 
@@ -76,6 +76,82 @@ def test_cuda_paged_kv_append_matches_plain(cuda, dtype):
     got_k, got_v = ops.paged_kv_append(tk, tv, tkp, tvp, tt, tpos)
     torch.cuda.synchronize()
     assert torch.equal(got_k[1:], want_k[1:]) and torch.equal(got_v[1:], want_v[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window", [(1024, 0), (1000, 0), (1024, 128), (1000, 37)])
+def test_cuda_dense_decode_attention_matches_plain(cuda, dtype, s, window):
+    """B3 at llama3.2-1b's heads over 16 rows of ragged lengths: empty,
+    full, past the cache (clamped on the card to S, so held against the
+    plain version at min(kv_len, S)) and partial."""
+    rng = np.random.default_rng(12)
+    kv_len = np.array([0, s, s + 7, 1, 31, 32, 33, 100, 129, 500, 513, 700, 999, 2, 64, 300])
+    q = rng.standard_normal((16, 32, 64)).astype(np.float32)
+    kc = rng.standard_normal((16, s, 8, 64)).astype(np.float32)
+    vc = rng.standard_normal((16, s, 8, 64)).astype(np.float32)
+    tq, tk, tv = [t.to(cuda).to(dtype) for t in as_torch(q, kc, vc)]
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(tq, tk, tv, lens, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    plain = ref.decode_attention_ref(tq, tk, tv, lens.clamp(max=s), window=window)
+    torch.testing.assert_close(out.float(), plain.float(), **CUDA_TOL[dtype])
+    assert torch.all(out[0] == 0)
+
+
+FLASH_CASES = [  # (t, s, causal, window, q_offset)
+    (1, 1, True, 0, 0), (32, 32, True, 0, 0), (200, 200, True, 0, 0), (512, 512, True, 128, 0),
+    (64, 320, True, 0, 256), (16, 64, True, 32, 128), (200, 77, False, 0, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s,causal,window,q_offset", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, dtype, t, s, causal, window, q_offset):
+    """B4 at llama3.2-1b's heads (32 over 8, D 64), B = 2, against its plain
+    version; the (16, 64, q_offset 128, window 32) case keeps no key for
+    any row, so its output must be exactly zero."""
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((2, t, 32, 64)).astype(np.float32)
+    k = rng.standard_normal((2, s, 8, 64)).astype(np.float32)
+    v = rng.standard_normal((2, s, 8, 64)).astype(np.float32)
+    tq, tk, tv = [x.to(cuda).to(dtype) for x in as_torch(q, k, v)]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention.LAUNCHES["flash_attention"]
+    out = flash_attention.flash_attention(tq, tk, tv, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash_attention"] == before + 1
+    plain = flash_attention.attention_ref(tq, tk, tv, **kw)
+    torch.testing.assert_close(out.float(), plain.float(), **CUDA_TOL[dtype])
+    if (t, s, window, q_offset) == (16, 64, 32, 128):
+        assert torch.all(out == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rows_sum_to_one(cuda):
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(rng.standard_normal((1, 300, 32, 64)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(rng.standard_normal((1, 300, 8, 64)).astype(np.float32)).to(cuda)
+    out = flash_attention.flash_attention(q, k, torch.ones_like(k))
+    torch.cuda.synchronize()
+    assert (out - 1).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    k = torch.zeros((1, 8, 2, 64), device=cuda)
+    before = flash_attention.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention.flash_attention(q, k.half(), k)
+    with pytest.raises(ValueError, match="head size"):
+        flash_attention.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                        k[..., :48].contiguous())
+    assert flash_attention.LAUNCHES["flash_attention"] == before
 
 
 # The SSD kernel and its plain version both compute in f32 from the same

@@ -1,8 +1,8 @@
-"""The port's paged decode kernels (``repro_torch.kernels.decode_attention``)
-against the reference package's Pallas kernels, run in interpret mode on
-the CPU, and its oracles: on the CPU the port's wrappers run their plain
-PyTorch versions (``test_torch_cuda_kernels.py`` holds the CUDA kernels
-against those on the card)."""
+"""The port's decode kernels (``repro_torch.kernels.decode_attention``),
+paged and dense, against the reference package's Pallas kernels, run in
+interpret mode on the CPU, and its oracles: on the CPU the port's
+wrappers run their plain PyTorch versions (``test_torch_cuda_kernels.py``
+holds the CUDA kernels against those on the card)."""
 
 import numpy as np
 import pytest
@@ -12,18 +12,22 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention as jax_decode,
     paged_decode_attention as jax_paged_decode,
     paged_kv_append as jax_paged_append,
 )
 from repro.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref as jax_decode_ref,
     paged_decode_attention_ref as jax_paged_decode_ref,
     paged_kv_append_ref as jax_paged_append_ref,
 )
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.decode_attention import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import gather_pages, ops  # noqa: E402
 
-# f32 on both sides: the same tolerance as the reference's kernel tests.
+# f32 on both sides: the same tolerance as the reference's kernel tests;
+# bf16 as theirs too (tests/test_kernels.py:33).
 TOL = dict(rtol=1e-5, atol=1e-5)
+TOLS = {"float32": TOL, "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
 
 def decode_case(seed, b, hkv, g, d, page, n_pages, kv_len):
@@ -157,4 +161,121 @@ def test_missing_compiler_raises_instead_of_falling_back(monkeypatch, tmp_path):
 def test_plain_path_counts_no_launch():
     ops.reset_launches()
     ops.paged_decode_attention(*as_torch(*decode_case(5, 2, 2, 2, 8, 4, 2, [3, 8])))
-    assert ops.LAUNCHES == {"paged_kv_append": 0, "paged_decode_attention": 0}
+    ops.decode_attention(*as_torch(*dense_case(5, 2, 16, 2, 2, 8, [3, 16])))
+    assert ops.LAUNCHES == {"paged_kv_append": 0, "paged_decode_attention": 0,
+                            "decode_attention": 0}
+
+
+# --- the dense decode kernel (B3) -------------------------------------------------
+
+
+def dense_case(seed, b, s, hkv, g, d, kv_len):
+    """q [b, hkv*g, d] and a linear cache [b, s, hkv, d], N(0, 1), with
+    the given valid lengths."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    kc = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    vc = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    return q, kc, vc, np.asarray(kv_len, dtype=np.int32)
+
+
+def both_dense(q, kc, vc, kl, dtype="float32", **kw):
+    """(port, Pallas in interpret mode, reference oracle) on the same
+    inputs, each rounded to ``dtype`` first; outputs as f32 numpy."""
+    port = ops.decode_attention(*[t.to(getattr(torch, dtype)) for t in as_torch(q, kc, vc)],
+                                torch.from_numpy(kl), **kw)
+    jargs = [jnp.asarray(a, dtype=getattr(jnp, dtype)) for a in (q, kc, vc)]
+    pallas = jax_decode(*jargs, jnp.asarray(kl), block_k=128, interpret=True, **kw)
+    oracle = jax_decode_ref(*jargs, jnp.asarray(kl), **kw)
+    assert port.dtype == getattr(torch, dtype) and port.shape == q.shape
+    return (port.float().numpy(), np.asarray(pallas, dtype=np.float32),
+            np.asarray(oracle, dtype=np.float32))
+
+
+# tests/test_kernels.py:127-135: (b, s, h, hkv, d, window)
+DENSE_CASES = [(2, 256, 8, 2, 64, 0), (1, 512, 4, 1, 128, 0), (4, 256, 8, 8, 64, 0),
+               (2, 512, 8, 2, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,hkv,d,window", DENSE_CASES)
+def test_dense_decode_attention_matches_reference(b, s, h, hkv, d, window, dtype):
+    rng = np.random.default_rng(2)
+    kv_len = rng.integers(1, s + 1, size=b)
+    port, pallas, oracle = both_dense(*dense_case(20, b, s, hkv, h // hkv, d, kv_len),
+                                      dtype=dtype, window=window)
+    np.testing.assert_allclose(port, pallas, **TOLS[dtype])
+    np.testing.assert_allclose(port, oracle, **TOLS[dtype])
+
+
+def test_dense_decode_kv_len_zero_emits_zero():
+    """A fresh slot attends to nothing: exactly zero, as the kernel's
+    running softmax leaves it (tests/test_kernels.py:170)."""
+    port, pallas, oracle = both_dense(*dense_case(21, 3, 256, 4, 1, 64, [0, 17, 0]))
+    for out in (port, pallas, oracle):
+        assert np.all(out[0] == 0.0) and np.all(out[2] == 0.0)
+    assert np.abs(port[1]).max() > 0
+    np.testing.assert_allclose(port, pallas, **TOL)
+    np.testing.assert_allclose(port, oracle, **TOL)
+
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_dense_decode_full_cache(window):
+    """kv_len == S on every row: no off-by-one at the cache's end."""
+    port, pallas, oracle = both_dense(*dense_case(22, 2, 256, 4, 1, 64, [256, 256]),
+                                      window=window)
+    np.testing.assert_allclose(port, pallas, **TOL)
+    np.testing.assert_allclose(port, oracle, **TOL)
+
+
+@pytest.mark.parametrize("s,window", [(200, 0), (1000, 0), (200, 37)])
+def test_dense_decode_s_not_a_multiple_of_128(s, window):
+    """The TPU wrapper falls back to a divisor of S as its block
+    (align_block_k); the port takes any S, ragged lengths included."""
+    kv_len = [0, 1, s // 3, s - 1, s]
+    port, pallas, oracle = both_dense(*dense_case(23, 5, s, 2, 4, 32, kv_len), window=window)
+    np.testing.assert_allclose(port, pallas, **TOL)
+    np.testing.assert_allclose(port, oracle, **TOL)
+
+
+DENSE_INVALID = {
+    "float_kv_len": (np.array([4.0, 8.0], np.float32), TypeError),
+    "kv_len_past_cache": (np.array([4, 129], np.int32), ValueError),
+    "negative_kv_len": (np.array([-1, 4], np.int32), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_INVALID))
+def test_dense_validation_errors_match_reference(case):
+    """tests/test_kernels.py:196-211: the same inputs, the same errors."""
+    kv_len, err = DENSE_INVALID[case]
+    q, kc, vc, _ = dense_case(24, 2, 128, 2, 1, 64, [4, 8])
+    args = dict(q=q, k_cache=kc, v_cache=vc, kv_len=kv_len)
+    with pytest.raises(err):
+        jax_decode(**{k: jnp.asarray(v) for k, v in args.items()}, interpret=True)
+    with pytest.raises(err):
+        ops.decode_attention(**{k: torch.from_numpy(np.array(v)) for k, v in args.items()})
+
+
+@pytest.mark.parametrize("kv_len,window", [([32, 9, 0], 0), ([32, 17, 8], 6)])
+def test_dense_decode_matches_paged_over_gathered_pages(kv_len, window):
+    """tests/test_kernels.py:238: the dense wrapper over the gathered view
+    of a shuffled pool equals the paged wrapper over the pool."""
+    b, g, d, page, n = 3, 2, 64, 8, 4
+    q, kp, vp, table, kl = decode_case(25, b, 2, g, d, page, n, kv_len)
+    tq, tkp, tvp, tt, tkl = as_torch(q, kp, vp, table, kl)
+    paged = ops.paged_decode_attention(tq, tkp, tvp, tt, tkl, window=window)
+    dense = ops.decode_attention(tq, gather_pages(tkp, tt), gather_pages(tvp, tt), tkl,
+                                 window=window)
+    np.testing.assert_allclose(dense.numpy(), paged.numpy(), **TOL)
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, table, kl)]
+    np.testing.assert_allclose(dense.numpy(),
+                               np.asarray(jax_paged_decode(*jargs, window=window)), **TOL)
+
+
+def test_dense_wrapper_refuses_devices_it_cannot_serve():
+    q, kc, vc, kl = as_torch(*dense_case(26, 2, 16, 2, 2, 8, [3, 16]))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.decode_attention(q.to("meta"), kc.to("meta"), vc.to("meta"), kl.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        ops.decode_attention(q.to("meta"), kc, vc, kl)

@@ -1,7 +1,9 @@
 """The port's llama3.2-1b (SMOKE, f32) against the reference package's on
 the same params: prefill logits and three ragged decode steps, through
 the kernel path (the reference's ``use_pallas=True``, Pallas in interpret
-mode), the plain paged path, and the linear cache."""
+mode), the plain paged path, and the linear cache (whose prefill and
+decode run the flash and dense decode kernels' plain versions here); and
+which attention kernel each entry point reaches."""
 
 import numpy as np
 import pytest
@@ -149,3 +151,83 @@ def test_sliding_layers_are_refused_until_the_ring_cache_is_ported():
     with pytest.raises(NotImplementedError, match="layer 0"):
         build_model(swa, compute_dtype=torch.float32, device="cpu")
     build_model(cfg, compute_dtype=torch.float32, device="cpu")  # all-FULL still builds
+
+
+@pytest.fixture
+def spies(monkeypatch):
+    """Count the calls the attention layer makes to each kernel wrapper
+    (on the CPU the wrappers run their plain versions and count no
+    launch, so the calls are counted here)."""
+    from repro_torch.models import layers
+
+    calls = {"flash_attention": 0, "decode_attention": 0, "paged_decode_attention": 0}
+    for name in calls:
+        real = getattr(layers, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(layers, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["linear", "paged"])
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_entry_points_reach_the_attention_kernels(setup, spies, kind, use_kernels):
+    """With kernels, Model.prefill calls flash_attention once per layer on
+    either cache, and a decode step calls the cache's decode kernel once
+    per layer; with use_kernels=False neither kernel is called."""
+    _, _, cfg, params = setup
+    model = build_model(cfg, compute_dtype=torch.float32, device="cpu",
+                        use_kernels=use_kernels)
+    paged = PagedSpec(1 + B * (MAX_LEN // PAGE), PAGE) if kind == "paged" else None
+    cache = model.init_cache(B, MAX_LEN, paged=paged)
+    if paged is not None:
+        table = torch.arange(1, 1 + B * (MAX_LEN // PAGE), dtype=torch.int32).reshape(B, -1)
+        for layer in cache:
+            layer["page_table"] = table
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (B, T)))
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache, last_only=True)
+    n = cfg.num_layers if use_kernels else 0
+    assert spies["flash_attention"] == n
+    tokens = logits[:, -1].argmax(-1)[:, None]
+    model.decode_step(params, tokens, cache, torch.full((B,), T, dtype=torch.int32))
+    decode = "decode_attention" if kind == "linear" else "paged_decode_attention"
+    assert spies[decode] == n and spies["flash_attention"] == n
+    assert sum(spies.values()) == 2 * n
+
+
+def test_forward_from_a_nonzero_start_never_reaches_flash(setup, spies):
+    """A chunk after the first (start 3 on a linear cache holding 3 rows)
+    attends over the cache; B4's single q_offset never serves it."""
+    from repro_torch.models import transformer
+
+    _, _, cfg, params = setup
+    model = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 2 * T)))
+    cache = model.init_cache(B, MAX_LEN)
+    _, cache = model.prefill(params, {"tokens": tokens[:, :3]}, cache)
+    assert spies["flash_attention"] == cfg.num_layers
+    chunked, _ = transformer.forward(params, cfg, tokens[:, 3:], cache,
+                                     torch.full((B,), 3, dtype=torch.int32),
+                                     use_kernels=True, compute_dtype=torch.float32)
+    assert spies["flash_attention"] == cfg.num_layers and spies["decode_attention"] == 0
+    whole, _ = model.prefill(params, {"tokens": tokens}, model.init_cache(B, MAX_LEN))
+    np.testing.assert_allclose(chunked.numpy(), whole[:, 3:].numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["linear", "paged"])
+def test_prefill_refuses_a_cache_that_holds_rows(setup, spies, kind):
+    """Model.prefill starts every row at 0 and B4 attends over the chunk
+    alone, so a cache whose pos is not 0 is refused before any layer runs."""
+    _, _, cfg, params = setup
+    model = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    paged = PagedSpec(1 + B * (MAX_LEN // PAGE), PAGE) if kind == "paged" else None
+    cache = model.init_cache(B, MAX_LEN, paged=paged)
+    cache[-1]["pos"][1] = 2
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (B, T)))
+    with pytest.raises(ValueError, match=f"layer {cfg.num_layers - 1}"):
+        model.prefill(params, {"tokens": prompt}, cache)
+    assert sum(spies.values()) == 0

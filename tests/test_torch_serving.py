@@ -2,7 +2,7 @@
 continuous batcher token-for-token against the reference package's on
 llama3.2-1b SMOKE (f32, same params, same requests), including more
 requests than slots and a pool tight enough to force preemption, and the
-dense batcher on mamba2-370m SMOKE likewise."""
+dense batcher on llama3.2-1b and mamba2-370m SMOKE likewise."""
 
 import numpy as np
 import pytest
@@ -103,6 +103,44 @@ def test_dense_batcher_matches_reference(models):
     jb, jout, tb, tout = serve_both(models, prompts, 5, slots=2, max_len=32)
     assert tout == jout
     assert_drained(tb)
+
+
+def test_dense_llama_batcher_matches_reference(models):
+    """The dense llama batcher (B4 prefill, B3 decode: their plain
+    versions here) token for token against the reference's: prompts of
+    70 and 80 tokens (over 64), max_len 100 (not a multiple of 128), more
+    requests than slots.  Slot 1 serves both long prompts to the end of
+    its cache, then rides idle for the rest of slot 0's request, which
+    would carry its cache position past max_len if freeing did not reset
+    it; B3's wrapper refuses such a kv_len on the CPU."""
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (3, 70, 80)]
+    jb, jout, tb, tout = serve_both(models, prompts, 96, slots=2, max_len=100)
+    assert tout == jout
+    assert [len(o) for o in tout] == [96, 30, 20]
+    assert tb.steps == jb.steps
+    assert_drained(tb)
+
+
+def test_dense_idle_slot_position_stays_inside_the_cache(models):
+    """Requests one after another: slot 0 decodes, slot 1 never serves.
+    Its cache position climbs to max_len and is reset there, before B3
+    would read a row past the cache."""
+    _, (model, params) = models
+    b = ContinuousBatcher(model, params, slots=2, max_len=100)
+    reqs = [Request(prompt=[3 + i, 5], max_new_tokens=90) for i in range(2)]
+    seen = []
+    for r in reqs:
+        b.submit(r)
+        while b.occupancy() or b.queue_depth():
+            b.step()
+            for layer in b.cache:  # the host copy tracks the device positions
+                np.testing.assert_array_equal(layer["pos"].numpy(), b._cache_pos)
+            seen.append(int(b._cache_pos[1]))
+    assert max(seen) == 100 and len(seen) == 2 * 89
+    assert seen[-1] == len(seen) - 100, "reset once, at max_len"
+    assert all(len(r.output) == 90 for r in reqs)
+    assert_drained(b)
 
 
 def test_dense_batcher_serves_mamba2_as_reference(mamba_models):
