@@ -103,6 +103,43 @@ Phases, one JSON line each:
            Then the card run again on its first 2,000 points under
            torch.profiler: device time by kernel, the host's largest
            entries, and the device's share of the card run's wall.
+  mixtral_attention_kernels
+           B1, B2, B3 and B4 at mixtral-8x7b's heads (H=32, Hkv=8, D=128)
+           against their plain versions, f32 and bf16, under TOL (B4 at T
+           in {32, 512, 2048}, windows 0 and 128); bf16 times of B1, B2 and
+           B4 at the serving lengths.
+  mixtral_smoke
+           mixtral-8x7b SMOKE at f32 (window 16, 4 experts, top 2), dropless
+           and at capacity factor 1.25: prefill + ragged decode logits of
+           the kernel path on the card against the plain path on the CPU
+           (1e-4), and the paged batcher's tokens on 20-40-token prompts
+           with a pool tight enough to preempt, equal on both.
+  mixtral_logits_f32
+           FULL width, 2 layers, f32: a B=1 prefill of 512 tokens and one
+           paged decode step over 16 slots, kernel path against plain path
+           on the card: max|diff| <= 1e-3 rms(plain), every greedy token
+           equal, and every B5 call's idx, pos and keep equal.
+  mixtral_serve
+           the MoE main path: mixtral-8x7b FULL width cut to 16 of 32
+           layers (random bf16 weights, f32 router) behind the paged
+           ContinuousBatcher as in serve, on the same 32 requests.  B5
+           must equal (ticks + prefill calls) x 16 launches, B1 and B2
+           ticks x 16, B4 prefill calls x 16; dropped expert choices per
+           tick and the weight bytes a tick reads over its time.
+  mixtral_profile
+           the same run under torch.profiler: device busy share, B5's
+           share of device time and ms per call.
+  moe_kernels
+           B5 against its plain version: N in {16, 512, 2048}, E=8, k=2,
+           at capacity 1.25 and dropless, block_n in {N, 256, 64}; E=16
+           k=2; E=128 k=1; ties; the router logits mixtral_serve gave B5
+           in its first prefill and first four decode ticks.  idx, pos and
+           keep exactly equal, gates to rtol 1e-5 / atol 1e-6; then times
+           at the main path's shapes.
+  mixtral_logits
+           the served weights (bf16, 16 layers): the prefill and decode
+           comparison of mixtral_logits_f32; greedy tokens equal wherever
+           the plain top-two margin exceeds 2 max|diff|; the rest readings.
 Then the per-kernel JSON line, the nvidia-smi line, and the result line.
 Exits non-zero, printing no result, without a CUDA device; any failed
 check raises.
@@ -111,7 +148,9 @@ check raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -132,9 +171,16 @@ from repro_torch.configs.tcmm import TCMMConfig  # noqa: E402
 from repro_torch.core.reactive import ReactiveJob  # noqa: E402
 from repro_torch.data.sources import TrajectorySource  # noqa: E402
 from repro_torch.data.topics import MessageLog  # noqa: E402
-from repro_torch.kernels import build, flash_attention, ssd_scan, tcmm_assign  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    build,
+    flash_attention,
+    moe_gating,
+    ssd_scan,
+    tcmm_assign,
+)
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import PagedSpec  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 
@@ -180,6 +226,10 @@ KERNELS = {
         source="src/repro_torch/kernels/tcmm_assign/csrc/tcmm_assign.cu",
         replaces="src/repro/kernels/tcmm_assign/kernel.py:52",
         signature=tcmm_assign.ops.SIGNATURES["tcmm_assign"]),
+    "moe_gating": dict(
+        source="src/repro_torch/kernels/moe_gating/csrc/moe_gating.cu",
+        replaces="src/repro/kernels/moe_gating/kernel.py:90",
+        signature=moe_gating.ops.SIGNATURES["moe_gating"]),
 }
 LLAMA_KERNELS = ("paged_kv_append", "paged_decode_attention")
 LAYERS = 16
@@ -191,11 +241,12 @@ def reset_launches() -> None:
     flash_attention.reset_launches()
     ssd_scan.reset_launches()
     tcmm_assign.reset_launches()
+    moe_gating.reset_launches()
 
 
 def read_launches() -> dict:
     return {**ops.LAUNCHES, **flash_attention.LAUNCHES, **ssd_scan.LAUNCHES,
-            **tcmm_assign.LAUNCHES}
+            **tcmm_assign.LAUNCHES, **moe_gating.LAUNCHES}
 
 
 def emit(phase: str, **fields) -> None:
@@ -260,11 +311,12 @@ def phase_build() -> tuple:
 # --- phase 2 -----------------------------------------------------------------
 
 
-def decode_inputs(dtype, seed: int, dev, n_pages: int, kv_len: np.ndarray):
-    """llama3.2-1b FULL attention widths: B=16, Hkv=8, G=4, D=64, page 16;
-    each sequence owns n_pages shuffled pages, and one with kv_len 0
-    keeps an all-zero table row, as an idle batcher slot does."""
-    b, hkv, g, d, page = 16, 8, 4, 64, 16
+def decode_inputs(dtype, seed: int, dev, n_pages: int, kv_len: np.ndarray, d: int = 64):
+    """llama3.2-1b FULL attention widths: B=16, Hkv=8, G=4, D=64 (mixtral-8x7b
+    FULL: D=128), page 16; each sequence owns n_pages shuffled pages, and
+    one with kv_len 0 keeps an all-zero table row, as an idle batcher slot
+    does."""
+    b, hkv, g, page = 16, 8, 4, 16
     gen = torch.Generator(device=dev).manual_seed(seed)
     pool = (1 + b * n_pages, page, hkv, d)
     q = torch.randn((b, hkv * g, d), generator=gen, device=dev).to(dtype)
@@ -277,8 +329,21 @@ def decode_inputs(dtype, seed: int, dev, n_pages: int, kv_len: np.ndarray):
             torch.tensor(kv_len.astype(np.int32), device=dev))
 
 
-def append_inputs(dtype, seed: int, dev, n_pages: int, kv_len: np.ndarray):
-    _, kp, vp, table, lens = decode_inputs(dtype, seed, dev, n_pages, kv_len)
+def model_q_pos(kv_len: np.ndarray, dev) -> torch.Tensor:
+    """Query positions as the model passes them with kv_len = cache pos + 1:
+    kv_len - 1 for a busy slot.  Rows 2-4 are idle slots, whose batcher
+    position (0 after a preemption, else their last request's) is not
+    their running cache position: 0, half of kv_len, and 300 past
+    kv_len - 1, which with a window of 256 or less leaves no key, so the
+    row attends uniformly to every row; row 0 (kv_len 0) has no key
+    either."""
+    qp = np.maximum(kv_len.astype(np.int64) - 1, 0)
+    qp[2], qp[3], qp[4] = 0, kv_len[3] // 2, kv_len[4] - 1 + 300
+    return torch.tensor(qp.astype(np.int32), device=dev)
+
+
+def append_inputs(dtype, seed: int, dev, n_pages: int, kv_len: np.ndarray, d: int = 64):
+    _, kp, vp, table, lens = decode_inputs(dtype, seed, dev, n_pages, kv_len, d)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     b, hkv, d = lens.shape[0], kp.shape[2], kp.shape[3]
     k_new = torch.randn((b, hkv, d), generator=gen, device=dev).to(dtype)
@@ -287,25 +352,31 @@ def append_inputs(dtype, seed: int, dev, n_pages: int, kv_len: np.ndarray):
     return k_new, v_new, kp, vp, table, pos
 
 
-def check_parity(dev, seed: int, kv_len: np.ndarray) -> list:
+def check_parity(dev, seed: int, kv_len: np.ndarray, d: int = 64) -> list:
     """Each kernel against its plain version, bf16 and f32; raises on a
-    difference beyond TOL (decode) or any difference (append)."""
+    difference beyond TOL (decode) or any difference (append).  B2 runs
+    without q_pos (the query at kv_len - 1) and with the model's q_pos,
+    idle rows included (``model_q_pos``)."""
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        q, kp, vp, table, lens = decode_inputs(dtype, seed, dev, 128, kv_len)
-        for window in (0, 256):
-            out = ops.paged_decode_attention(q, kp, vp, table, lens, window=window)
-            plain = ref.paged_decode_attention_ref(q, kp, vp, table, lens, window=window)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
-            if not torch.all(out[kv_len == 0] == 0):
-                raise AssertionError("kv_len == 0 must give exactly zero")
-            err = out.float() - plain.float()
-            cases.append(dict(kernel="paged_decode_attention", dtype=str(dtype), window=window,
-                              max_abs_err=err.abs().max().item(),
-                              rms_err_over_rms=(err.pow(2).mean()
-                                                / plain.float().pow(2).mean()).sqrt().item()))
-        k_new, v_new, kp, vp, table, pos = append_inputs(dtype, seed + 1, dev, 128, kv_len)
+        q, kp, vp, table, lens = decode_inputs(dtype, seed, dev, 128, kv_len, d)
+        for q_pos in (None, model_q_pos(kv_len, dev)):
+            for window in (0, 256):
+                out = ops.paged_decode_attention(q, kp, vp, table, lens, window=window,
+                                                 q_pos=q_pos)
+                plain = ref.paged_decode_attention_ref(q, kp, vp, table, lens, window=window,
+                                                       q_pos=q_pos)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
+                if q_pos is None and not torch.all(out[kv_len == 0] == 0):
+                    raise AssertionError("kv_len == 0 must give exactly zero")
+                err = out.float() - plain.float()
+                cases.append(dict(kernel="paged_decode_attention", dtype=str(dtype),
+                                  window=window, q_pos="none" if q_pos is None else "model",
+                                  max_abs_err=err.abs().max().item(),
+                                  rms_err_over_rms=(err.pow(2).mean()
+                                                    / plain.float().pow(2).mean()).sqrt().item()))
+        k_new, v_new, kp, vp, table, pos = append_inputs(dtype, seed + 1, dev, 128, kv_len, d)
         got = ops.paged_kv_append(k_new, v_new, kp.clone(), vp.clone(), table, pos)
         want = ref.paged_kv_append_ref(k_new, v_new, kp.clone(), vp.clone(), table, pos)
         torch.cuda.synchronize()
@@ -318,11 +389,15 @@ def check_parity(dev, seed: int, kv_len: np.ndarray) -> list:
     return cases
 
 
-def time_kernels(dev, seed: int, n_pages: int, kv_len: np.ndarray, flush) -> dict:
+def time_kernels(dev, seed: int, n_pages: int, kv_len: np.ndarray, flush, d: int = 64) -> dict:
     """bf16 times of each kernel, its plain version and one library call,
-    with the bound computed from these inputs."""
+    with the bound computed from these inputs.  Where every kv_len is
+    positive, B2 takes q_pos = kv_len - 1, as the model passes it for busy
+    slots; a kv_len 0 row with q_pos would attend to every row, which the
+    bound does not count, so such inputs run without q_pos."""
     dtype, rows = torch.bfloat16, {}
-    q, kp, vp, table, lens = decode_inputs(dtype, seed, dev, n_pages, kv_len)
+    q, kp, vp, table, lens = decode_inputs(dtype, seed, dev, n_pages, kv_len, d)
+    qp = lens - 1 if (kv_len > 0).all() else None
     b, h, d = q.shape
     hkv, page = kp.shape[2], kp.shape[1]
     rows_kv = kv_len.astype(np.int64)
@@ -341,13 +416,15 @@ def time_kernels(dev, seed: int, n_pages: int, kv_len: np.ndarray, flush) -> dic
     q4 = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows["paged_decode_attention"] = dict(
-        kernel_ms=time_ms(lambda: ops.paged_decode_attention(q, kp, vp, table, lens), flush),
-        plain_ms=time_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp, table, lens), flush),
+        kernel_ms=time_ms(lambda: ops.paged_decode_attention(q, kp, vp, table, lens, q_pos=qp),
+                          flush),
+        plain_ms=time_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp, table, lens,
+                                                                q_pos=qp), flush),
         library_ms=time_ms(lambda: sdpa(q4, kd, vd, attn_mask=mask), flush),
         bound_ms=bnd, bound_by=by, bytes=int(n_bytes))
     del kd, vd
 
-    k_new, v_new, kp, vp, table, pos = append_inputs(dtype, seed + 1, dev, n_pages, kv_len)
+    k_new, v_new, kp, vp, table, pos = append_inputs(dtype, seed + 1, dev, n_pages, kv_len, d)
     n_bytes = 2 * 2 * k_new.numel() * es + 4 * b * 2  # K and V rows read + written; pos, table
     bnd, by = bound_ms(n_bytes, 0, dtype)
     flat_k, flat_v = kp.view(-1, hkv, d), vp.view(-1, hkv, d)
@@ -380,8 +457,8 @@ def phase_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
                "main_path": time_kernels(dev, seed, 64, served, flush)}
     emit("kernels", cases=cases, timings=timings,
          note="bf16 times in ms (CUDA events, median of 30, L2 flushed) at B=16 Hkv=8 G=4 "
-              "D=64 page=16; library: SDPA over the pre-gathered dense view / two "
-              "index_copy_ calls")
+              "D=64 page=16, B2 at the main path's lengths with q_pos = kv_len - 1; "
+              "library: SDPA over the pre-gathered dense view / two index_copy_ calls")
     rows = timings["main_path"]
     for name in LLAMA_KERNELS:
         rows[name]["max_abs_err"] = max(c["max_abs_err"] for c in cases
@@ -400,8 +477,9 @@ FLASH_CASES = ([(t, t, True, w, 0) for t in (1, 32, 200, 512, 2048) for w in (0,
                + [(64, 320, True, 0, 256), (16, 64, True, 32, 128), (200, 200, False, 0, 0)])
 
 
-def flash_inputs(seed: int, b: int, t: int, s: int, dev, dtype, ones_v: bool = False):
-    h, hkv, d = LLAMA_HEADS["h"], LLAMA_HEADS["hkv"], LLAMA_HEADS["d"]
+def flash_inputs(seed: int, b: int, t: int, s: int, dev, dtype, ones_v: bool = False,
+                 heads: dict = LLAMA_HEADS):
+    h, hkv, d = heads["h"], heads["hkv"], heads["d"]
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
@@ -419,10 +497,10 @@ def kept_pairs(t: int, s: int, causal: bool, window: int, q_offset: int) -> int:
 
 
 def flash_work(b: int, t: int, s: int, causal: bool, window: int, q_offset: int,
-               elem: int) -> tuple:
+               elem: int, heads: dict = LLAMA_HEADS) -> tuple:
     """(bytes, operations) of one B4 call: q and out, k and v once each;
     two products (4 operations) of length D per query head and kept pair."""
-    h, hkv, d = LLAMA_HEADS["h"], LLAMA_HEADS["hkv"], LLAMA_HEADS["d"]
+    h, hkv, d = heads["h"], heads["hkv"], heads["d"]
     n_bytes = b * (2 * t * h * d + 2 * s * hkv * d) * elem
     return n_bytes, b * 4 * d * h * kept_pairs(t, s, causal, window, q_offset)
 
@@ -454,28 +532,8 @@ def phase_flash_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
         ones.append(dict(t=t, window=window, max_abs_out_minus_1=(out - 1).abs().max().item()))
     bad = ([c for c in cases if not c["within_tol"] or c.get("exactly_zero") is False]
            + [o for o in ones if o["max_abs_out_minus_1"] > 1e-4])
-
-    def timing(t: int) -> dict:
-        q, k, v = flash_inputs(seed + 2, 1, t, t, dev, torch.bfloat16)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's layout
-        bnd, by = bound_ms(*flash_work(1, t, t, True, 0, 0, 2), torch.bfloat16)
-        return dict(
-            kernel_ms=time_ms(lambda: flash_attention.flash_attention(q, k, v), flush),
-            plain_ms=time_ms(lambda: flash_attention.attention_ref(q, k, v), flush),
-            library_ms=time_ms(lambda: SDPA(qt, kt, vt, is_causal=True, enable_gqa=True),
-                               flush),
-            bound_ms=bnd, bound_by=by)
-
-    lens = prompt_lengths(seed)
-    per_t = {int(t): timing(int(t)) for t in sorted(set(lens.tolist()))}
-    weights = [int((lens == t).sum()) for t in per_t]
-    main_path = {key: sum(w * r[key] for w, r in zip(weights, per_t.values())) / sum(weights)
-                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-    share = {by: sum(w * r["bound_ms"] for w, r in zip(weights, per_t.values())
-                     if r["bound_by"] == by) for by in ("bytes", "operations")}
-    main_path["bound_by"] = max(share, key=share.get)
-    timings = {"main_path_per_launch": main_path, "t2048": timing(2048),
-               "main_path_by_t": {str(t): r for t, r in per_t.items()}}
+    timings = flash_timings(seed, dev, flush, LLAMA_HEADS)
+    main_path = timings["main_path_per_launch"]
     emit("flash_kernels", cases=cases, v_all_ones=ones, timing=timings,
          tol="f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3; v all ones (f32): "
              "|out - 1| <= 1e-4; rows with no kept key exactly 0",
@@ -492,9 +550,38 @@ def phase_flash_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
                                 if c["dtype"] == "torch.bfloat16"))
 
 
-def dense_decode_inputs(dtype, seed: int, dev, s: int, kv_len: np.ndarray):
-    """q [16, 32, 64] and a linear cache [16, S, 8, 64], N(0, 1)."""
-    h, hkv, d = LLAMA_HEADS["h"], LLAMA_HEADS["hkv"], LLAMA_HEADS["d"]
+def flash_timing(seed: int, t: int, dev, flush, heads: dict) -> dict:
+    """bf16 times of B4, its plain version and SDPA at B = 1, causal, T = S."""
+    q, k, v = flash_inputs(seed + 2, 1, t, t, dev, torch.bfloat16, heads=heads)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's layout
+    bnd, by = bound_ms(*flash_work(1, t, t, True, 0, 0, 2, heads), torch.bfloat16)
+    return dict(
+        kernel_ms=time_ms(lambda: flash_attention.flash_attention(q, k, v), flush),
+        plain_ms=time_ms(lambda: flash_attention.attention_ref(q, k, v), flush),
+        library_ms=time_ms(lambda: SDPA(qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+        bound_ms=bnd, bound_by=by)
+
+
+def flash_timings(seed: int, dev, flush, heads: dict) -> dict:
+    """B4 timed at every served prompt length (and their mean per launch,
+    the main path's) and at T = 2048."""
+    lens = prompt_lengths(seed)
+    per_t = {int(t): flash_timing(seed, int(t), dev, flush, heads)
+             for t in sorted(set(lens.tolist()))}
+    weights = [int((lens == t).sum()) for t in per_t]
+    main_path = {key: sum(w * r[key] for w, r in zip(weights, per_t.values())) / sum(weights)
+                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    share = {by: sum(w * r["bound_ms"] for w, r in zip(weights, per_t.values())
+                     if r["bound_by"] == by) for by in ("bytes", "operations")}
+    main_path["bound_by"] = max(share, key=share.get)
+    return {"main_path_per_launch": main_path, "t2048": flash_timing(seed, 2048, dev, flush, heads),
+            "main_path_by_t": {str(t): r for t, r in per_t.items()}}
+
+
+def dense_decode_inputs(dtype, seed: int, dev, s: int, kv_len: np.ndarray,
+                        heads: dict = LLAMA_HEADS):
+    """q [16, H, D] and a linear cache [16, S, Hkv, D], N(0, 1)."""
+    h, hkv, d = heads["h"], heads["hkv"], heads["d"]
     b = len(kv_len)
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
@@ -526,19 +613,23 @@ def phase_dense_decode_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
             kv_len = rng.integers(1, s + 1, size=16)
             kv_len[:3] = (0, s, s + 9)  # empty, full, past the cache
             q, kc, vc, lens = dense_decode_inputs(dtype, seed, dev, s, kv_len)
-            for window in (0, 128):
-                out = ops.decode_attention(q, kc, vc, lens, window=window)
-                plain = ref.decode_attention_ref(q, kc, vc, lens.clamp(max=s), window=window)
+            for q_pos, window in ((qp, w) for qp in (None, model_q_pos(kv_len, dev))
+                                  for w in (0, 128)):
+                out = ops.decode_attention(q, kc, vc, lens, window=window, q_pos=q_pos)
+                plain = ref.decode_attention_ref(q, kc, vc, lens.clamp(max=s), window=window,
+                                                 q_pos=q_pos)
                 torch.cuda.synchronize()
                 case = dict(dtype=str(dtype), s=s, window=window,
+                            q_pos="none" if q_pos is None else "model",
                             max_abs_err=(out.float() - plain.float()).abs().max().item(),
                             within_tol=bool(torch.allclose(out.float(), plain.float(),
                                                            **TOL[dtype])),
-                            kv_len_0_exactly_zero=bool((out[0] == 0).all()))
+                            kv_len_0_exactly_zero=q_pos is not None or bool((out[0] == 0).all()))
                 if s % 16 == 0:
                     kp, table = as_pages(kc)
                     vp, _ = as_pages(vc)
-                    paged = ops.paged_decode_attention(q, kp, vp, table, lens, window=window)
+                    paged = ops.paged_decode_attention(q, kp, vp, table, lens, window=window,
+                                                       q_pos=q_pos)
                     torch.cuda.synchronize()
                     case["max_abs_diff_vs_paged_b2"] = (out.float() - paged.float()).abs().max().item()
                     case["within_tol_vs_paged_b2"] = bool(torch.allclose(
@@ -551,6 +642,7 @@ def phase_dense_decode_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
     # new tokens) in a 1024-row cache, bf16
     served = rng.integers(32, 513, size=16) + rng.integers(0, 33, size=16)
     q, kc, vc, lens = dense_decode_inputs(torch.bfloat16, seed + 1, dev, 1024, served)
+    qp = lens - 1  # busy slots, as the model passes them
     b, h, d = q.shape
     hkv = kc.shape[2]
     rows = served.astype(np.int64).sum()
@@ -560,15 +652,16 @@ def phase_dense_decode_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
     kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()  # SDPA's layout
     mask = (torch.arange(1024, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     row = dict(
-        kernel_ms=time_ms(lambda: ops.decode_attention(q, kc, vc, lens), flush),
-        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, lens), flush),
+        kernel_ms=time_ms(lambda: ops.decode_attention(q, kc, vc, lens, q_pos=qp), flush),
+        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, lens, q_pos=qp), flush),
         library_ms=time_ms(lambda: SDPA(q4, kt, vt, attn_mask=mask, enable_gqa=True), flush),
         bound_ms=bnd, bound_by=by, bytes=int(n_bytes))
     emit("dense_decode_kernels", cases=cases, timing={"main_path": row},
          tol="TOL (f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3), against the plain "
-             "version and against B2 on a paged copy; kv_len 0 rows exactly 0",
+             "version and against B2 on a paged copy; kv_len 0 rows exactly 0 without "
+             "q_pos; with the model's q_pos, idle rows 2-4 (model_q_pos)",
          note="ms: CUDA events, median of 30, L2 flushed; B=16, S=1024, H=32, Hkv=8, D=64, "
-              "bf16, kv_len 32..544; bound: bytes of the rows below kv_len, q and out at "
+              "bf16, kv_len 32..544, q_pos = kv_len - 1; bound: bytes of the rows below kv_len, q and out at "
               "3.35 TB/s; library: scaled_dot_product_attention with a boolean mask from "
               "kv_len and enable_gqa=True on [B, Hkv, S, D] copies")
     if bad:
@@ -703,7 +796,7 @@ def timed(fn, acc: list):
     return wrapper
 
 
-def phase_serve(model, params, cfg, seed: int) -> tuple:
+def phase_serve(model, params, cfg, seed: int, layers: int = LAYERS) -> tuple:
     # warm-up: cuBLAS handles, allocator, first launches
     warm = full_batcher(model, params)
     for r in full_requests(cfg, seed + 100)[:2]:
@@ -720,6 +813,7 @@ def phase_serve(model, params, cfg, seed: int) -> tuple:
     for r in reqs:
         batcher.submit(r)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()                          # main path: counters from zero
     t0 = time.perf_counter()
     decoded = batcher.run_until_drained()
@@ -731,10 +825,10 @@ def phase_serve(model, params, cfg, seed: int) -> tuple:
     if batcher.page_pool.leaked() != 0 or batcher.page_pool.in_use != 0:
         raise AssertionError("pages leaked")
     for name in LLAMA_KERNELS:
-        if launches[name] == 0 or launches[name] != batcher.steps * LAYERS:
+        if launches[name] == 0 or launches[name] != batcher.steps * layers:
             raise AssertionError(
-                f"{name}: {launches[name]} launches for {batcher.steps} ticks x {LAYERS} layers")
-    check_prefill_launches(launches, len(prefill_s))
+                f"{name}: {launches[name]} launches for {batcher.steps} ticks x {layers} layers")
+    check_prefill_launches(launches, len(prefill_s), layers)
     stats = dict(
         requests=len(reqs), ticks=batcher.steps, prefill_calls=len(prefill_s),
         decoded_tokens=decoded, launches=launches, preemptions=batcher.preemptions,
@@ -760,11 +854,11 @@ def check_served(batcher, reqs, cfg) -> None:
             raise AssertionError(f"request {r.req_id}: token out of range")
 
 
-def check_prefill_launches(launches: dict, prefill_calls: int) -> None:
+def check_prefill_launches(launches: dict, prefill_calls: int, layers: int = LAYERS) -> None:
     """Every prefill (prompts of 32 tokens or more) ran B4 in every layer."""
-    if prefill_calls == 0 or launches["flash_attention"] != prefill_calls * LAYERS:
+    if prefill_calls == 0 or launches["flash_attention"] != prefill_calls * layers:
         raise AssertionError(f"flash_attention: {launches['flash_attention']} launches for "
-                             f"{prefill_calls} prefill calls x {LAYERS} layers")
+                             f"{prefill_calls} prefill calls x {layers} layers")
 
 
 def dense_batcher(model, params):
@@ -1563,6 +1657,534 @@ def profile_tcmm(points, dev, n_points: int) -> dict:
                 host_top_self_cpu_ms=[dict(ms=ms, calls=n, name=k) for ms, n, k in host])
 
 
+# --- mixtral-8x7b: mixtral_attention_kernels, mixtral_smoke, mixtral_logits_f32,
+#     mixtral_serve, mixtral_profile, moe_kernels, mixtral_logits ----------------------
+
+MIXTRAL = "mixtral-8x7b"
+# 32 -> 16 layers: 16 layers of bf16 weights take 46.4 GB of the card's 80 GB,
+# all 32 would take 92.9 GB
+MIXTRAL_LAYERS = 16
+MIXTRAL_F32_LAYERS = 2  # FULL width in f32: about 12.7 GB
+MIXTRAL_HEADS = dict(h=32, hkv=8, d=128)  # mixtral-8x7b FULL
+# B5 against its plain version: idx, pos and keep exactly equal, gates to
+# the reference test's tolerance (tests/test_kernels.py:362-382)
+GATE_TOL = dict(rtol=1e-5, atol=1e-6)
+# FULL width, 2 layers, f32 (TF32 off): kernel path against plain path,
+# max|diff| as a fraction of the plain logits' RMS
+MIXTRAL_F32_TOL = 1e-3
+MOE_CASES = [(512, 16, 2, 80, 128), (256, 128, 1, 4, 128)]  # jamba-, llama4-style
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def reduced(layers: int) -> dict:
+    return {"num_layers": f"32 -> {layers}"}
+
+
+def with_capacity(cfg, capacity_factor: float):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            capacity_factor=capacity_factor))
+
+
+@contextlib.contextmanager
+def routing_capture():
+    """Wrap the model's gating function and its plain version; each call
+    appends (logits, capacity, (idx, gates, pos, keep)) under its name.
+    Only references are kept: no copy, no launch, no sync."""
+    calls = {"moe_gating": [], "moe_gating_ref": []}
+    real = {name: getattr(moe, name) for name in calls}
+
+    def wrap(name):
+        def gating(logits, top_k, capacity, block_n):
+            out = real[name](logits, top_k, capacity, block_n=block_n)
+            calls[name].append((logits, capacity, out))
+            return out
+        return gating
+
+    for name in calls:
+        setattr(moe, name, wrap(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+
+
+def routing_agreement(kernel_calls: list, plain_calls: list) -> dict:
+    """B5's routing on the kernel path against the plain version's on the
+    plain path, call by call (layer by layer)."""
+    if len(kernel_calls) != len(plain_calls):
+        raise AssertionError(f"{len(kernel_calls)} gating calls against {len(plain_calls)}")
+    agree = total = 0
+    equal = True
+    for (_, _, (ki, _, kp, kk)), (_, _, (pi, _, pp, pk)) in zip(kernel_calls, plain_calls):
+        agree += int((ki == pi).sum())
+        total += ki.numel()
+        equal &= torch.equal(ki, pi) and torch.equal(kp, pp) and torch.equal(kk, pk)
+    return dict(calls=len(kernel_calls), choices=total, idx_agree_share=agree / total,
+                idx_pos_keep_all_equal=equal)
+
+
+@contextlib.contextmanager
+def routing_forced(kernel_calls: list):
+    """Make the plain path route as the kernel path did: its i-th gating
+    call returns the kernel path's i-th idx, pos and keep, with the gates
+    renormalised from its own probabilities at those experts.  The two
+    paths' logits then differ only by what attention and rounding leave,
+    and can be held to a limit.  Each call appends (kernel path's router
+    logits, own router logits, forced idx, own idx) to count the flips
+    its own routing would have made."""
+    real = moe.moe_gating_ref
+    pending = iter(kernel_calls)
+    seen = []
+
+    def gating(logits, top_k, capacity, block_n):
+        k_logits, k_capacity, (idx, _, pos, keep) = next(pending)
+        if k_capacity != capacity or idx.shape != (logits.shape[0], top_k):
+            raise AssertionError("the plain path's gating calls do not follow the kernel path's")
+        own = real(logits, top_k, capacity, block_n=block_n)[0]
+        g = [moe_gating.ref.probabilities(logits).gather(1, idx.long())[:, r]
+             for r in range(top_k)]  # the plain version's arithmetic, left to right
+        seen.append((k_logits, logits, idx, own))
+        return idx, torch.stack([x / functools.reduce(torch.add, g).clamp(min=1e-9)
+                                 for x in g], dim=1), pos, keep
+
+    moe.moe_gating_ref = gating
+    try:
+        yield seen
+    finally:
+        moe.moe_gating_ref = real
+    if len(seen) != len(kernel_calls):
+        raise AssertionError(f"{len(seen)} forced gating calls against {len(kernel_calls)}")
+
+
+def forced_flips(seen: list) -> dict:
+    """Under forced routing, each layer's own choices against the kernel
+    path's: the share that agree and, for the flips, the plain router's
+    logit gap between its own expert and the forced one, beside the
+    largest router-logit difference between the two paths."""
+    agree = total = 0
+    gap_max = diff_max = 0.0
+    for k_logits, logits, idx, own in seen:
+        flip = idx != own
+        agree += int((~flip).sum())
+        total += flip.numel()
+        diff_max = max(diff_max, (k_logits - logits).abs().max().item())
+        if flip.any():
+            gap = logits.gather(1, own.long()) - logits.gather(1, idx.long())
+            gap_max = max(gap_max, gap.abs()[flip].max().item())
+    return dict(own_idx_agree_share=agree / total, flipped_choices=total - agree,
+                choices=total, flip_max_router_gap=gap_max, router_max_abs_diff=diff_max)
+
+
+def phase_mixtral_attention(dev, seed: int, flush: torch.Tensor) -> dict:
+    """B1 and B2 (paged, kv_len 0..2048 with a 0), B3 (linear, kv_len 0..1024
+    with a 0) and B4 (T in {32, 512, 2048}, window 0 and 128) at mixtral's
+    heads (H=32, Hkv=8, D=128) against their plain versions, f32 and bf16,
+    under TOL; then bf16 times of B1, B2 and B4 at the serving lengths."""
+    d = MIXTRAL_HEADS["d"]
+    rng = np.random.default_rng(seed + 21)
+    wide = rng.integers(1, 2049, size=16)
+    wide[0], wide[1] = 0, 2048
+    paged = check_parity(dev, seed, wide, d)  # raises beyond TOL
+    dense, flash = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        kv_len = rng.integers(1, 1025, size=16)
+        kv_len[:2] = (0, 1024)
+        q, kc, vc, lens = dense_decode_inputs(dtype, seed, dev, 1024, kv_len, MIXTRAL_HEADS)
+        for q_pos, window in ((qp, w) for qp in (None, model_q_pos(kv_len, dev))
+                              for w in (0, 128)):
+            out = ops.decode_attention(q, kc, vc, lens, window=window, q_pos=q_pos)
+            plain = ref.decode_attention_ref(q, kc, vc, lens, window=window, q_pos=q_pos)
+            torch.cuda.synchronize()
+            dense.append(dict(dtype=str(dtype), window=window,
+                              q_pos="none" if q_pos is None else "model",
+                              max_abs_err=(out.float() - plain.float()).abs().max().item(),
+                              within_tol=bool(torch.allclose(out.float(), plain.float(),
+                                                             **TOL[dtype])),
+                              kv_len_0_exactly_zero=(q_pos is not None
+                                                     or bool((out[0] == 0).all()))))
+        for t in (32, 512, 2048):
+            q, k, v = flash_inputs(seed, 1, t, t, dev, dtype, heads=MIXTRAL_HEADS)
+            for window in (0, 128):
+                out = flash_attention.flash_attention(q, k, v, window=window)
+                plain = flash_attention.attention_ref(q, k, v, window=window)
+                torch.cuda.synchronize()
+                flash.append(dict(dtype=str(dtype), t=t, window=window,
+                                  max_abs_err=(out.float() - plain.float()).abs().max().item(),
+                                  within_tol=bool(torch.allclose(out.float(), plain.float(),
+                                                                 **TOL[dtype]))))
+    served = rng.integers(32, 513, size=16) + rng.integers(0, 33, size=16)
+    timings = {"paged_main_path": time_kernels(dev, seed, 64, served, flush, d),
+               "flash_attention": flash_timings(seed, dev, flush, MIXTRAL_HEADS)}
+    emit("mixtral_attention_kernels", paged=paged, decode_attention=dense,
+         flash_attention=flash, timing=timings,
+         tol="TOL (f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3); kv_len 0 rows exactly 0 "
+             "without q_pos; B2 and B3 also with the model's q_pos, idle rows 2-4",
+         note="H=32, Hkv=8, D=128 (mixtral-8x7b FULL); ms: CUDA events, median of 30, L2 "
+              "flushed, bf16; paged_main_path: B=16, page 16, kv_len 32..544 in 64-page "
+              "tables, q_pos = kv_len - 1; flash_attention: B=1, causal, the 32 served prompt lengths and T=2048")
+    bad = ([c for c in dense if not c["within_tol"] or not c["kv_len_0_exactly_zero"]]
+           + [c for c in flash if not c["within_tol"]])
+    if bad:
+        raise AssertionError(f"attention kernels at mixtral's heads differ: {bad}")
+    return timings
+
+
+def mixtral_smoke_prompts(rng, n: int) -> list:
+    """Prompts of 20..40 tokens, past SMOKE's window of 16."""
+    return [rng.integers(0, 512, size=int(rng.integers(20, 41))).tolist() for _ in range(n)]
+
+
+def phase_mixtral_smoke(dev, seed: int) -> None:
+    """mixtral SMOKE at f32 (window 16, 4 experts, top 2), dropless and at
+    capacity factor 1.25: prefill + ragged decode logits of the kernel path
+    on the card against the plain path on the CPU, over pages, and the
+    paged batcher's tokens (a pool tight enough to preempt)."""
+    out = {}
+    for cf in (0.0, 1.25):
+        cfg = with_capacity(get_arch(MIXTRAL, smoke=True), cf)
+        on_card = build_model(cfg, compute_dtype=torch.float32, device=dev)
+        on_cpu = build_model(cfg, compute_dtype=torch.float32, device="cpu", use_kernels=False)
+        p_card = on_card.init(torch.Generator().manual_seed(seed))  # drawn on the CPU
+        p_cpu = on_cpu.init(torch.Generator().manual_seed(seed))
+        b, t, max_len, page = 3, 24, 48, 4
+        n_slot = max_len // page
+        rng = np.random.default_rng(seed + 31)
+        prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(b, t)))
+        table = torch.tensor((1 + rng.permutation(b * n_slot)).reshape(b, n_slot).astype(np.int32))
+        pos = torch.tensor([t, t - 5, t - 1], dtype=torch.int32)
+        reset_launches()
+        runs = {}
+        for name, model, params in (("card", on_card, p_card), ("cpu", on_cpu, p_cpu)):
+            d = model.device
+            cache = model.init_cache(b, max_len, paged=PagedSpec(1 + b * n_slot, page))
+            for layer in cache:
+                layer["page_table"] = table.to(d)
+            with torch.inference_mode():
+                logits, cache = model.prefill(params, {"tokens": prompt.to(d)}, cache,
+                                              last_only=True)
+            for layer in cache:
+                layer["pos"] = pos.to(d)
+            runs[name] = [cache, [logits.cpu()]]
+        tokens = runs["cpu"][1][0][:, -1].argmax(-1)[:, None]
+        for step in range(3):
+            for name, model, params in (("card", on_card, p_card), ("cpu", on_cpu, p_cpu)):
+                with torch.inference_mode():
+                    logits, runs[name][0] = model.decode_step(
+                        params, tokens.to(model.device), runs[name][0],
+                        (pos + step).to(model.device))
+                runs[name][1].append(logits.cpu())
+            tokens = runs["cpu"][1][-1][:, -1].argmax(-1)[:, None]
+        worst = 0.0
+        for a, c in zip(runs["card"][1], runs["cpu"][1]):
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+            worst = max(worst, (a - c).abs().max().item())
+        launches = read_launches()
+        want = {"moe_gating": 4 * cfg.num_layers, "flash_attention": cfg.num_layers,
+                "paged_decode_attention": 3 * cfg.num_layers}
+        if {n: launches[n] for n in want} != want:
+            raise AssertionError(f"SMOKE launches {launches}, want {want}")
+
+        outputs, counts = [], []
+        for model, params in ((on_card, p_card), (on_cpu, p_cpu)):
+            bt = ContinuousBatcher(model, params, slots=3, max_len=64,
+                                   paged=PagedSpec(num_pages=17, page_size=4))
+            reqs = [Request(prompt=pr, max_new_tokens=8)
+                    for pr in mixtral_smoke_prompts(np.random.default_rng(seed + 32), 6)]
+            for r in reqs:
+                bt.submit(r)
+            bt.run_until_drained()
+            outputs.append([r.output for r in reqs])
+            counts.append((bt.preemptions, bt.steps, bt.page_pool.leaked()))
+        if outputs[0] != outputs[1] or counts[0] != counts[1]:
+            raise AssertionError(f"mixtral SMOKE batcher (capacity factor {cf}) on the card "
+                                 f"differs from the CPU: {counts}")
+        out[f"capacity_factor_{cf}"] = dict(
+            logits_max_abs_diff=worst, launches={n: launches[n] for n in want},
+            batcher_tokens_equal=True, preemptions=counts[0][0], ticks=counts[0][1])
+    emit("mixtral_smoke", **out, tol="rtol=atol=1e-4 (f32, TF32 off); batcher tokens equal",
+         reduced={"config": "SMOKE (d_model 64, 2 layers, 4 experts, window 16)"})
+
+
+def mixtral_compare(model, params, cfg, seed: int) -> dict:
+    """Kernel path against plain path from one set of params: logits at
+    every position of a B = 1 prefill of 512 tokens on a linear cache, and
+    one paged decode step over 16 slots from one state; B5's routing on
+    the kernel path against the plain version's on the plain path; and
+    the same logits with the plain path forced onto the kernel path's
+    routing (``routing_forced``)."""
+    plain = build_model(cfg, compute_dtype=model.compute_dtype, device=model.device,
+                        use_kernels=False)
+    dev = model.device
+    rng = np.random.default_rng(seed + 17)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, size=(1, 512)), device=dev)
+    out = {}
+    with torch.inference_mode():
+        with routing_capture() as k_calls:
+            lg, _ = model.prefill(params, {"tokens": prompt}, model.init_cache(1, 1024))
+        k_logits = lg[0].float()
+        with routing_capture() as p_calls:
+            lg, _ = plain.prefill(params, {"tokens": prompt}, plain.init_cache(1, 1024))
+        out["prefill"] = compare_logits(k_logits, lg[0].float())
+        out["prefill_routing"] = routing_agreement(k_calls["moe_gating"],
+                                                   p_calls["moe_gating_ref"])
+        with routing_forced(k_calls["moe_gating"]) as seen:
+            lg, _ = plain.prefill(params, {"tokens": prompt}, plain.init_cache(1, 1024))
+        out["prefill_forced"] = dict(**compare_logits(k_logits, lg[0].float()),
+                                     routing=forced_flips(seen))
+        del k_logits, lg, k_calls, p_calls, seen
+
+        b, t, max_len, page = 16, 256, 1024, 16
+        n_slot = max_len // page
+        tokens = torch.tensor(rng.integers(0, cfg.vocab_size, size=(b, t)), device=dev)
+        table = torch.tensor((1 + rng.permutation(b * n_slot)).reshape(b, n_slot)
+                             .astype(np.int32), device=dev)
+        cache = model.init_cache(b, max_len, paged=PagedSpec(1 + b * n_slot, page))
+        for layer in cache:
+            layer["page_table"] = table
+        lg, cache = model.prefill(params, {"tokens": tokens}, cache, last_only=True)
+        pos = torch.tensor(rng.integers(1, t + 1, size=b).astype(np.int32), device=dev)
+        nxt = lg[:, -1].argmax(-1)[:, None]
+        for layer in cache:
+            layer["pos"] = pos
+        copies = [[{k: v.clone() for k, v in layer.items()} for layer in cache]
+                  for _ in range(2)]  # decode steps write into their cache
+        with routing_capture() as k_calls:
+            k_logits, _ = model.decode_step(params, nxt, cache, pos)
+        with routing_capture() as p_calls:
+            p_logits, _ = plain.decode_step(params, nxt, copies[0], pos)
+        with routing_forced(k_calls["moe_gating"]) as seen:
+            f_logits, _ = plain.decode_step(params, nxt, copies[1], pos)
+    out["decode"] = compare_logits(k_logits[:, -1].float(), p_logits[:, -1].float())
+    out["decode_routing"] = routing_agreement(k_calls["moe_gating"], p_calls["moe_gating_ref"])
+    out["decode_forced"] = dict(**compare_logits(k_logits[:, -1].float(), f_logits[:, -1].float()),
+                                routing=forced_flips(seen))
+    return out
+
+
+def phase_mixtral_logits_f32(dev, seed: int) -> None:
+    """FULL width, 2 layers, f32: max|diff| <= MIXTRAL_F32_TOL * rms(plain),
+    every greedy token equal, every B5 call's idx, pos and keep equal to the
+    plain path's."""
+    cfg = dataclasses.replace(get_arch(MIXTRAL), num_layers=MIXTRAL_F32_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.float32, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    r = mixtral_compare(model, params, cfg, seed)
+    emit("mixtral_logits_f32", **r, reduced=reduced(MIXTRAL_F32_LAYERS),
+         gates=f"max|diff| <= {MIXTRAL_F32_TOL} * rms(plain); greedy tokens all equal; B5 "
+               "idx, pos and keep equal to the plain path's in every call (f32, TF32 off)")
+    failed = [key for key in ("prefill", "decode")
+              if not r[key]["finite"] or r[key]["greedy_equal"] != r[key]["positions"]
+              or r[key]["max_abs_diff"] > MIXTRAL_F32_TOL * r[key]["ref_rms"]]
+    failed += [key for key in ("prefill_routing", "decode_routing")
+               if not r[key]["idx_pos_keep_all_equal"]]
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"mixtral f32 kernel path against plain path fails {failed}: {r}")
+
+
+def phase_mixtral_serve(model, params, cfg, seed: int) -> dict:
+    """The MoE main path (paged serving, as phase_serve), through the
+    entry points as a user calls them; B5 must launch (ticks + prefill
+    calls) x 16."""
+    stats, _ = phase_serve(model, params, cfg, seed, layers=MIXTRAL_LAYERS)
+    launches = stats["launches"]["moe_gating"]
+    want = (stats["ticks"] + stats["prefill_calls"]) * MIXTRAL_LAYERS
+    if launches == 0 or launches != want:
+        raise AssertionError(f"moe_gating: {launches} launches for (ticks + prefill calls) x "
+                             f"{MIXTRAL_LAYERS} layers = {want}")
+    # every weight a decode tick reads: all but the embedding table, of which
+    # it gathers 16 rows (the expert products run over every expert)
+    weight_bytes = tensor_bytes(params) - tensor_bytes(params["embed"]["tok"])
+    stats.update(
+        weight_bytes_per_tick=weight_bytes,
+        weight_gb_per_s_per_tick=weight_bytes / (stats["decode_ms_per_tick"] / 1e3) / 1e9)
+    return stats
+
+
+def phase_mixtral_profile(model, params, cfg, seed: int, serve: dict) -> tuple:
+    """The serving run again, on the same requests, under the profiler and
+    with B5's calls captured (references only: no copy, no sync): device
+    times and B5's share of them, the dropped expert choices, and the
+    router logits (with their capacities) of the first prefill and the
+    first four decode ticks for ``moe_kernels``."""
+    with routing_capture() as calls:
+        prof = profile_serving(full_batcher(model, params), full_requests(cfg, seed))
+    main = calls["moe_gating"]
+    if len(main) != serve["launches"]["moe_gating"]:
+        raise AssertionError(f"the profiled rerun made {len(main)} gating calls, the served "
+                             f"run {serve['launches']['moe_gating']}")
+    slots, k = 16, cfg.moe.top_k
+    decode = [c for c in main if c[0].shape[0] == slots]  # prompts are 32 tokens or more
+    prefill = [c for c in main if c[0].shape[0] != slots]
+    dropped = [sum(int((~c[2][3]).sum()) for c in decode[i:i + MIXTRAL_LAYERS])
+               for i in range(0, len(decode), MIXTRAL_LAYERS)]
+    gating = prof["kernels"].get("moe_gating")
+    prof.update(
+        moe_gating_ms_per_call=gating["device_ms"] / gating["calls"] if gating else None,
+        moe_gating_share_of_device_time=(gating["device_ms"] / 1e3 / prof["device_s"]
+                                         if gating else None),
+        device_s_over_serve_wall=prof["device_s"] / serve["wall_s"],
+        dropped_choices_per_tick=dict(mean=statistics.mean(dropped), max=max(dropped),
+                                      of=slots * k * MIXTRAL_LAYERS),
+        dropped_choices_prefill=dict(total=sum(int((~c[2][3]).sum()) for c in prefill),
+                                     of=sum(c[0].shape[0] * k for c in prefill)),
+        decode_capacity_per_expert=decode[0][1])
+    captured = ([(c[0], c[1], "first prefill") for c in main[:MIXTRAL_LAYERS]]
+                + [(c[0], c[1], "decode ticks 1-4") for c in decode[:4 * MIXTRAL_LAYERS]])
+    return prof, captured
+
+
+def moe_work(n: int, e: int, k: int) -> tuple:
+    """(bytes, f32 operations) of one B5 call: logits read once, idx,
+    gates, pos (4 bytes each) and keep (1 byte) written once; per token
+    the max, the exponentials and their sum (4 E), and per rank the
+    probabilities again and the comparisons (3 E), then the gates (2 k)."""
+    return n * e * 4 + n * k * 13, n * (4 * e + 3 * e * k + 2 * k)
+
+
+def phase_moe_kernels(dev, seed: int, flush: torch.Tensor, captured: list,
+                      ticks: int) -> dict:
+    """B5 against its plain version on the card; then CUDA-event times at
+    the main path's shapes (the decode call at N = 16 and every served
+    prompt length), weighted by their launches in mixtral_serve."""
+    cases = []
+
+    def check(logits, k, cap, block_n, **label) -> None:
+        got = moe_gating.moe_gating(logits, k, cap, block_n=block_n)
+        want = moe_gating.moe_gating_ref(logits, k, cap,
+                                         block_n=moe_gating.ops.block_size(logits.shape[0],
+                                                                           block_n))
+        torch.cuda.synchronize()
+        cases.append(dict(
+            **label, n=logits.shape[0], e=logits.shape[1], k=k, capacity=cap, block_n=block_n,
+            idx_equal=torch.equal(got[0], want[0]), pos_equal=torch.equal(got[2], want[2]),
+            keep_equal=torch.equal(got[3], want[3]),
+            gates_within_tol=bool(torch.allclose(got[1], want[1], **GATE_TOL)),
+            gates_bit_equal=torch.equal(got[1], want[1]),
+            max_abs_err=(got[1] - want[1]).abs().max().item(),
+            dropped=int((~want[3]).sum())))
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    for n in (16, 512, 2048):
+        logits = torch.randn((n, 8), generator=gen, device=dev)
+        for cap in (int(n * 2 * 1.25 / 8), n * 2):
+            for bn in sorted({moe_gating.ops.block_size(n, b) for b in (n, 256, 64)}):
+                check(logits, 2, cap, bn)
+    for n, e, k, cap, bn in MOE_CASES:
+        check(torch.randn((n, e), generator=gen, device=dev), k, cap, bn)
+    ties = torch.tensor([[1.0, 3.0, 3.0, 0.0, 3.0, -1.0, 0.0, 2.0],
+                         [2.0] * 8, [0.5, -1.0, 0.5, 0.5, 0.0, 0.0, 0.0, 0.0]], device=dev)
+    check(ties.repeat(64, 1), 2, 40, 64, case="ties")
+    tie_idx = moe_gating.moe_gating(ties, 2, 6, block_n=3)[0]
+    torch.cuda.synchronize()
+    ties_lowest = tie_idx.tolist() == [[1, 2], [0, 1], [0, 2]]
+    for logits, cap, label in captured:
+        check(logits, 2, cap, logits.shape[0], case=f"main path: {label}")
+    bad = [c for c in cases if not (c["idx_equal"] and c["pos_equal"] and c["keep_equal"]
+                                    and c["gates_within_tol"])]
+
+    def timing(n: int) -> dict:
+        logits = torch.randn((n, 8), generator=gen, device=dev)
+        cap = int(n * 2 * 1.25 / 8)
+        bnd, by = bound_ms(*moe_work(n, 8, 2), torch.float32)
+        return dict(
+            kernel_ms=time_ms(lambda: moe_gating.moe_gating(logits, 2, cap, block_n=n), flush),
+            plain_ms=time_ms(lambda: moe_gating.moe_gating_ref(logits, 2, cap, block_n=n),
+                             flush),
+            bound_ms=bnd, bound_by=by)
+
+    lens = prompt_lengths(seed)
+    per_n = {16: timing(16), **{int(t): timing(int(t)) for t in sorted(set(lens.tolist()))}}
+    weights = [ticks if n == 16 else int((lens == n).sum()) for n in per_n]
+    main_path = {key: sum(w * r[key] for w, r in zip(weights, per_n.values())) / sum(weights)
+                 for key in ("kernel_ms", "plain_ms", "bound_ms")}
+    timings = {"main_path_per_launch": main_path, "decode_n16": per_n[16],
+               "n512": timing(512), "n2048": timing(2048),
+               "by_n": {str(n): r for n, r in per_n.items()}}
+    emit("moe_kernels", cases=cases, ties_lowest_index=ties_lowest, timing=timings,
+         tol="idx, pos and keep exactly equal; gates rtol 1e-5, atol 1e-6",
+         note="logits f32 N(0,1), E=8, k=2 unless stated; ms: CUDA events, median of 30, L2 "
+              "flushed, at capacity int(N*2*1.25/8) and block_n=N as the model calls it; "
+              "main_path: mean per launch over mixtral_serve's calls (decode at N=16, "
+              "prefill at each prompt length); bound: bytes N*E*4 + N*k*13 at 3.35 TB/s; "
+              "library: none (no single PyTorch call computes B5: softmax then topk "
+              "leaves out the FCFS positions, and topk's order on ties is unspecified)")
+    if bad or not ties_lowest:
+        raise AssertionError(f"moe_gating differs from its plain version: {bad}, "
+                             f"ties {tie_idx.tolist()}")
+    return dict(kernel_ms=main_path["kernel_ms"], plain_ms=main_path["plain_ms"],
+                bound_ms=main_path["bound_ms"], bound_by="bytes", library_ms=None,
+                max_abs_err=max(c["max_abs_err"] for c in cases))
+
+
+def check_mixtral_logits(r: dict) -> None:
+    """bf16, 16 layers: the greedy token equal wherever the plain top-two
+    margin exceeds 2 max|diff|; and, with the plain path forced onto the
+    kernel path's routing, the logits within LOGIT_TOL, as llama's are.
+    Free-running, the differences and the routing agreement are readings:
+    in bf16 a near-tie in the router may flip one expert choice and change
+    the token's later layers wholesale."""
+    failed = [key for key in ("prefill", "decode", "prefill_forced", "decode_forced")
+              if not r[key]["finite"]
+              or r[key]["greedy_equal_where_clear"] != r[key]["clear_positions"]]
+    failed += [key for key in ("prefill_forced", "decode_forced")
+               if r[key]["max_abs_diff"] > LOGIT_TOL["max_abs"] * r[key]["ref_rms"]
+               or r[key]["rms_diff"] > LOGIT_TOL["rms"] * r[key]["ref_rms"]]
+    if failed:
+        raise AssertionError(f"mixtral bf16 kernel path against plain path fails {failed}: {r}")
+
+
+def run_mixtral(dev, seed: int, smi: str, started: float) -> tuple:
+    """Every mixtral phase, in order; returns B5's row and its launches on
+    the main path (mixtral_serve)."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    phase_mixtral_attention(dev, seed, flush)
+    del flush
+    phase_mixtral_smoke(dev, seed)
+    phase_mixtral_logits_f32(dev, seed)
+    xcfg = dataclasses.replace(get_arch(MIXTRAL), num_layers=MIXTRAL_LAYERS)
+    xmodel = build_model(xcfg)  # bf16 on the card (f32 router), kernels on
+    t0 = time.perf_counter()
+    xparams = xmodel.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    xserve = phase_mixtral_serve(xmodel, xparams, xcfg, seed)
+    emit("mixtral_serve", init_s=init_s, **xserve, reduced=reduced(MIXTRAL_LAYERS),
+         weight_gb=tensor_bytes(xparams) / 1e9, nvidia_smi=smi,
+         note="ContinuousBatcher(slots=16, max_len=1024, page 16), 32 requests of 32-512 "
+              "prompt tokens and 32 new tokens, random bf16 weights; "
+              "weight_gb_per_s_per_tick: weight bytes a decode tick reads over its median time")
+    xprof, captured = phase_mixtral_profile(xmodel, xparams, xcfg, seed, xserve)
+    emit("mixtral_profile", **xprof, reduced=reduced(MIXTRAL_LAYERS),
+         note="the mixtral_serve requests again under torch.profiler, B5's calls captured; "
+              "dropped choices count keep == False")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    row = phase_moe_kernels(dev, seed, flush, captured, xserve["ticks"])
+    del flush, captured
+    xlogits = mixtral_compare(xmodel, xparams, xcfg, seed)
+    emit("mixtral_logits", **xlogits, reduced=reduced(MIXTRAL_LAYERS),
+         gates="greedy equal wherever the plain top-2 margin exceeds 2 max|diff| (bf16); "
+               f"forced routing: max|diff| <= {LOGIT_TOL['max_abs']} * rms(plain), rms(diff) "
+               f"<= {LOGIT_TOL['rms']} * rms(plain); free-running max|diff|, rms(diff) and "
+               "routing agreement, and the forced runs' own-routing flips, are readings",
+         elapsed_s=time.perf_counter() - started)
+    check_mixtral_logits(xlogits)
+    del xmodel, xparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, xserve["launches"]["moe_gating"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1653,11 +2275,14 @@ def main() -> int:
         for when, key in (("l2_flushed", "kernel_ms"), ("l2_warm", "kernel_ms_l2_warm"))}
     emit("tcmm_pipeline", **pipe, nvidia_smi=smi, elapsed_s=time.perf_counter() - started)
 
+    rows["moe_gating"], moe_launches = run_mixtral(dev, args.seed, smi, started)
+
     main_path_launches = {**{n: serve["launches"][n] for n in LLAMA_KERNELS},
                           **{n: dense["launches"][n]
                              for n in ("decode_attention", "flash_attention")},
                           "ssd_chunked": mserve["launches"]["ssd_chunked"],
-                          "tcmm_assign": pipe["launches"]}
+                          "tcmm_assign": pipe["launches"],
+                          "moe_gating": moe_launches}
     kernels = []
     for name, meta in KERNELS.items():
         r = rows[name]

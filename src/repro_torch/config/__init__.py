@@ -4,6 +4,7 @@ from repro_torch.config.base import (
     FFNKind,
     LayerSpec,
     MambaConfig,
+    MoEConfig,
     get_arch,
     register_arch,
 )

@@ -1,11 +1,11 @@
 """Architecture descriptions and their registry.
 
 The port's own copy of the reference package's config types, trimmed to
-what the ported paths read: the attention / FFN kinds, the Mamba-2
-block's ``MambaConfig``, one ``LayerSpec`` per depth-pattern position,
-and ``ArchConfig``.  Configs are frozen dataclasses; each file in
-``repro_torch/configs/`` registers a full-size config and a reduced
-``smoke`` variant for CPU tests.
+what the ported paths read: the attention / FFN kinds, the MoE layer's
+``MoEConfig``, the Mamba-2 block's ``MambaConfig``, one ``LayerSpec`` per
+depth-pattern position, and ``ArchConfig``.  Configs are frozen
+dataclasses; each file in ``repro_torch/configs/`` registers a full-size
+config and a reduced ``smoke`` variant for CPU tests.
 """
 
 from __future__ import annotations
@@ -26,6 +26,16 @@ class FFNKind(str, Enum):
     DENSE = "dense"
     MOE = "moe"
     NONE = "none"
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # Auxiliary load-balance loss weight (Switch-style).
+    aux_loss_weight: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -62,6 +72,7 @@ class ArchConfig:
     head_dim: int = 0                # 0 -> d_model // num_heads
     # Depth pattern: layer i uses pattern[i % len(pattern)]. Default: all-FULL.
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
     max_seq_len: int = 131072
     rope_theta: float = 500000.0

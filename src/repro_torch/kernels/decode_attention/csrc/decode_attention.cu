@@ -11,7 +11,9 @@
 // satisfy p < kv_len, and with window > 0 also p > kv_len - 1 - window
 // (kernel.py:75-78).  kv_len == 0 gives exactly zero (denominator
 // max(l, 1e-30), kernel.py:91); NEG_INF is -1e30, not -inf, so an
-// all-masked chunk never produces NaN.
+// all-masked chunk never produces NaN.  The model passes each query's
+// position as well (q_pos), and then the rows are the ones its plain
+// attention keeps (key_range below).
 //
 // Bound on the H100: bytes.  Each key and value row the mask keeps is read
 // once, 2*sum_b(rows_b)*Hkv*D*sizeof(T) bytes, against 4*sum_b(rows_b)*H*D
@@ -55,12 +57,42 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The rows [first, len) a query attends.  Without q_pos the query sits at
+// kv_len - 1: rows below kv_len (clamped into [0, rows]), the last `window`
+// of them with a window; none when kv_len is 0, which gives exactly zero.
+// With q_pos, as the model's plain attention masks (layers._dense_attention):
+// rows below kv_len that are at most q_pos and, with a window, above
+// q_pos - window; an idle batcher slot's q_pos need not be kv_len - 1.  A
+// query left with no row there attends uniformly to all `rows` rows (every
+// score 0), as a softmax over an all-masked row of -1e30 scores does.
+__device__ __forceinline__ void key_range(int kv_len, const int* q_pos, int rows, int window,
+                                          int* first, int* len, bool* uniform) {
+  int hi = kv_len < 0 ? 0 : (kv_len > rows ? rows : kv_len);
+  int lo;
+  *uniform = false;
+  if (q_pos == nullptr) {
+    lo = (window > 0 && hi > window) ? hi - window : 0;
+  } else {
+    const int qp = *q_pos;
+    hi = qp < hi - 1 ? (qp < 0 ? 0 : qp + 1) : hi;
+    lo = (window > 0 && qp - window + 1 > 0) ? qp - window + 1 : 0;
+    if (lo >= hi) {
+      lo = 0;
+      hi = rows;
+      *uniform = true;
+    }
+  }
+  *first = lo;
+  *len = hi;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const T* __restrict__ q,             // [B, H, D]
     const T* __restrict__ k_cache,       // [B, S, Hkv, D]
     const T* __restrict__ v_cache,       // [B, S, Hkv, D]
     const int* __restrict__ kv_len,      // [B]
+    const int* __restrict__ q_pos,       // [B] or null
     T* __restrict__ out,                 // [B, H, D]
     int S, int H, int Hkv, int D, int window, float sm_scale) {
   const int b = blockIdx.x;
@@ -91,9 +123,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     s_l[g] = 0.f;
   }
 
-  int len = kv_len[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
-  const int first = (window > 0 && len > window) ? len - window : 0;
+  int first, len;
+  bool uniform;
+  key_range(kv_len[b], q_pos ? q_pos + b : nullptr, S, window, &first, &len, &uniform);
   const long long row_stride = (long long)Hkv * D;  // elements from one cache row to the next
   const long long head_base = (long long)b * S * row_stride + (long long)h_kv * D;
   __syncthreads();
@@ -127,7 +159,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
         const float* kr = s_k + t * (D + 1);
         float dot = 0.f;
         for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * sm_scale;
+        s = uniform ? 0.f : dot * sm_scale;
       }
       s_p[e] = s;
     }
@@ -174,8 +206,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, const void* kv_len,
-                   void* out, int batch, int S, int H, int Hkv, int D, int window,
-                   float sm_scale, cudaStream_t stream) {
+                   const void* q_pos, void* out, int batch, int S, int H, int Hkv, int D,
+                   int window, float sm_scale, cudaStream_t stream) {
   const int G = H / Hkv;
   const size_t smem =
       sizeof(float) * (2 * G * D + kChunk * (D + 1) + kChunk * D + G * kChunk + 3 * G);
@@ -188,7 +220,8 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, cons
   dim3 grid(batch, Hkv);
   decode_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_cache), static_cast<const T*>(v_cache),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), S, H, Hkv, D, window, sm_scale);
+      static_cast<const int*>(kv_len), static_cast<const int*>(q_pos), static_cast<T*>(out), S,
+      H, Hkv, D, window, sm_scale);
   return cudaGetLastError();
 }
 
@@ -197,18 +230,19 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, cons
 // dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                const void* kv_len, void* out, int dtype, int batch, int S,
+                                const void* kv_len, const void* q_pos, void* out, int dtype,
+                                int batch, int S,
                                 int H, int Hkv, int D, int window, float sm_scale,
                                 void* stream) {
   if (batch <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(q, k_cache, v_cache, kv_len, out, batch, S, H, Hkv, D, window,
+    err = launch<float>(q, k_cache, v_cache, kv_len, q_pos, out, batch, S, H, Hkv, D, window,
                         sm_scale, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k_cache, v_cache, kv_len, out, batch, S, H, Hkv, D, window,
-                                sm_scale, s);
+    err = launch<__nv_bfloat16>(q, k_cache, v_cache, kv_len, q_pos, out, batch, S, H, Hkv, D,
+                                window, sm_scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -10,7 +10,9 @@
 // pool page page_table[b, p / page].  Keys must satisfy p < kv_len, and
 // with window > 0 also p > kv_len - 1 - window.  kv_len == 0 gives exactly
 // zero (denominator max(l, 1e-30), as at kernel.py:205); NEG_INF is -1e30, not
-// -inf, so an all-masked chunk never produces NaN.
+// -inf, so an all-masked chunk never produces NaN.  The model passes each
+// query's position as well (q_pos), and then the rows are the ones its
+// plain attention keeps (key_range below).
 //
 // Bound on the H100: bytes.  Each key and value row the mask keeps is read
 // once, 2*sum_b(rows_b)*Hkv*D*sizeof(T) bytes, against 4*sum_b(rows_b)*H*D
@@ -31,9 +33,10 @@
 // pass, cp.async/TMA staging and mma for the products are later work.
 //
 // Scratch page 0: an idle batcher slot's table row is all zero, so its
-// keys come from page 0, which append kernels of idle slots may be
-// writing at the same time (a benign race, see paged_kv_append.cu).  Its
-// output is never used.
+// keys come from page 0, where the append kernel stores the idle slots'
+// rows (the last slot's where two name one row, see paged_kv_append.cu).
+// Its output is never returned to a request, but under MoE capacity drops
+// its token competes with the busy ones for expert capacity.
 //
 // Why clamp on the device: kv_len is clamped into [0, n_pages*page] and
 // each page id into [0, P - 1] here, as the reference wrapper clamps
@@ -60,6 +63,35 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The rows [first, len) a query attends.  Without q_pos the query sits at
+// kv_len - 1: rows below kv_len (clamped into [0, rows]), the last `window`
+// of them with a window; none when kv_len is 0, which gives exactly zero.
+// With q_pos, as the model's plain attention masks (layers._dense_attention):
+// rows below kv_len that are at most q_pos and, with a window, above
+// q_pos - window; an idle batcher slot's q_pos need not be kv_len - 1.  A
+// query left with no row there attends uniformly to all `rows` rows (every
+// score 0), as a softmax over an all-masked row of -1e30 scores does.
+__device__ __forceinline__ void key_range(int kv_len, const int* q_pos, int rows, int window,
+                                          int* first, int* len, bool* uniform) {
+  int hi = kv_len < 0 ? 0 : (kv_len > rows ? rows : kv_len);
+  int lo;
+  *uniform = false;
+  if (q_pos == nullptr) {
+    lo = (window > 0 && hi > window) ? hi - window : 0;
+  } else {
+    const int qp = *q_pos;
+    hi = qp < hi - 1 ? (qp < 0 ? 0 : qp + 1) : hi;
+    lo = (window > 0 && qp - window + 1 > 0) ? qp - window + 1 : 0;
+    if (lo >= hi) {
+      lo = 0;
+      hi = rows;
+      *uniform = true;
+    }
+  }
+  *first = lo;
+  *len = hi;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
     const T* __restrict__ q,             // [B, H, D]
@@ -67,6 +99,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
     const T* __restrict__ v_pages,       // [P, page, Hkv, D]
     const int* __restrict__ page_table,  // [B, n_pages]
     const int* __restrict__ kv_len,      // [B]
+    const int* __restrict__ q_pos,       // [B] or null
     T* __restrict__ out,                 // [B, H, D]
     int H, int Hkv, int D, int num_pages, int page_size, int n_pages, int window,
     float sm_scale) {
@@ -99,9 +132,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
   }
 
   const int cap = n_pages * page_size;
-  int len = kv_len[b];
-  len = len < 0 ? 0 : (len > cap ? cap : len);
-  const int first = (window > 0 && len > window) ? len - window : 0;
+  int first, len;
+  bool uniform;
+  key_range(kv_len[b], q_pos ? q_pos + b : nullptr, cap, window, &first, &len, &uniform);
   const int* table = page_table + (long long)b * n_pages;
   const long long row_stride = (long long)Hkv * D;  // elements from one page row to the next
   __syncthreads();
@@ -138,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
         const float* kr = s_k + t * (D + 1);
         float dot = 0.f;
         for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * sm_scale;
+        s = uniform ? 0.f : dot * sm_scale;
       }
       s_p[e] = s;
     }
@@ -185,7 +218,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* page_table, const void* kv_len, void* out, int batch, int H,
+                   const void* page_table, const void* kv_len, const void* q_pos, void* out,
+                   int batch, int H,
                    int Hkv, int D, int num_pages, int page_size, int n_pages, int window,
                    float sm_scale, cudaStream_t stream) {
   const int G = H / Hkv;
@@ -201,7 +235,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   paged_decode_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
       static_cast<const int*>(page_table), static_cast<const int*>(kv_len),
-      static_cast<T*>(out), H, Hkv, D, num_pages, page_size, n_pages, window, sm_scale);
+      static_cast<const int*>(q_pos), static_cast<T*>(out), H, Hkv, D, num_pages, page_size,
+      n_pages, window, sm_scale);
   return cudaGetLastError();
 }
 
@@ -211,7 +246,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 // (0 on success).
 extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       const void* v_pages, const void* page_table,
-                                      const void* kv_len, void* out, int dtype, int batch,
+                                      const void* kv_len, const void* q_pos, void* out,
+                                      int dtype, int batch,
                                       int H, int Hkv, int D, int num_pages, int page_size,
                                       int n_pages, int window, float sm_scale,
                                       void* stream) {
@@ -219,10 +255,10 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(q, k_pages, v_pages, page_table, kv_len, out, batch, H, Hkv, D,
+    err = launch<float>(q, k_pages, v_pages, page_table, kv_len, q_pos, out, batch, H, Hkv, D,
                         num_pages, page_size, n_pages, window, sm_scale, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, kv_len, out, batch, H, Hkv,
+    err = launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, kv_len, q_pos, out, batch, H, Hkv,
                                 D, num_pages, page_size, n_pages, window, sm_scale, s);
   } else {
     err = cudaErrorInvalidValue;

@@ -25,12 +25,15 @@
 // The copy is dtype-blind: the wrapper checks that the new rows and the
 // pools share one dtype and passes the row size in bytes.
 //
-// Page 0 race (benign): idle batcher slots keep all-zero page-table rows,
-// so every idle slot resolves to scratch page 0, and several blocks may
-// store to the same row of page 0 at once.  Which store lands is
-// unspecified.  Page 0 is never handed to a live request (serving
-// PagePool), so no live context is ever read from it; tests compare every
-// page but page 0.
+// Rows named twice: idle batcher slots keep all-zero page-table rows, so
+// every idle slot resolves to scratch page 0, and two idle slots at one
+// position name the same row.  The last sequence's row lands, as the TPU
+// kernel's sequential grid and the reference's indexed update leave it: a
+// block stores nothing when a later sequence names its row.  Page 0 is
+// never handed to a live request, but an idle slot's attention reads it,
+// and under MoE capacity drops an idle slot's token competes with the busy
+// ones for expert capacity, so its row must not depend on which store
+// lands first.
 //
 // Why clamp on the device: the indices come from device tensors, and a
 // range check on the host would cost one device-to-host sync per layer
@@ -59,6 +62,19 @@ __device__ __forceinline__ void copy_row(const char* __restrict__ src, char* __r
   }
 }
 
+// Sequence b's clamped position p and the clamped pool page pid it lands in.
+__device__ __forceinline__ void target_row(int b, const int* __restrict__ page_table,
+                                           const int* __restrict__ pos, int n_pages,
+                                           int num_pages, int page_size, int* p_out,
+                                           int* pid_out) {
+  const int max_pos = n_pages * page_size - 1;
+  int p = pos[b];
+  p = p < 0 ? 0 : (p > max_pos ? max_pos : p);
+  int pid = page_table[(long long)b * n_pages + p / page_size];
+  *p_out = p;
+  *pid_out = pid < 0 ? 0 : (pid > num_pages - 1 ? num_pages - 1 : pid);
+}
+
 __global__ void __launch_bounds__(kThreads) paged_kv_append_kernel(
     const char* __restrict__ k_new,   // [B, Hkv, D]
     const char* __restrict__ v_new,   // [B, Hkv, D]
@@ -68,11 +84,13 @@ __global__ void __launch_bounds__(kThreads) paged_kv_append_kernel(
     const int* __restrict__ pos,         // [B]
     int n_pages, int num_pages, int page_size, long long row_bytes) {
   const int b = blockIdx.x;
-  const int max_pos = n_pages * page_size - 1;
-  int p = pos[b];
-  p = p < 0 ? 0 : (p > max_pos ? max_pos : p);
-  int pid = page_table[(long long)b * n_pages + p / page_size];
-  pid = pid < 0 ? 0 : (pid > num_pages - 1 ? num_pages - 1 : pid);
+  int p, pid;
+  target_row(b, page_table, pos, n_pages, num_pages, page_size, &p, &pid);
+  for (int later = b + 1; later < (int)gridDim.x; ++later) {  // the last writer wins
+    int lp, lpid;
+    target_row(later, page_table, pos, n_pages, num_pages, page_size, &lp, &lpid);
+    if (lpid == pid && lp % page_size == p % page_size) return;
+  }
 
   const long long src_off = (long long)b * row_bytes;
   const long long dst_off = ((long long)pid * page_size + p % page_size) * row_bytes;

@@ -27,10 +27,12 @@ Validation keeps the reference wrapper's contract
     positions and page tables before each tick.
 
 Scratch page 0: idle batcher slots keep all-zero table rows, so their
-appends all land in page 0 and may race there (several blocks storing
-one row), and their attention reads it.  That is benign: page 0 is
-never handed to a live request, and the idle slots' outputs are
-discarded.  Tests never compare page 0.
+appends all land in page 0, and their attention reads it.  Page 0 is
+never handed to a live request.  Two idle slots at one position name the
+same row; the last slot's row lands, on the card and in the plain
+version alike, because under MoE capacity drops an idle slot's token
+competes with the busy ones for expert capacity and must not depend on
+the order of two stores.
 
 ``LAUNCHES`` counts kernel launches by name.  Only a launch on the card
 counts; the plain CPU path does not.
@@ -64,14 +66,14 @@ SIGNATURES = {
     ],
     "paged_decode_attention": [
         _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q k_pages v_pages
-        _c.c_void_p, _c.c_void_p, _c.c_void_p,               # page_table kv_len out
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # page_table kv_len q_pos out
         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # dtype batch H Hkv D
         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # num_pages page n_pages window
         _c.c_float, _c.c_void_p,                             # sm_scale stream
     ],
     "decode_attention": [
         _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q k_cache v_cache
-        _c.c_void_p, _c.c_void_p,                            # kv_len out
+        _c.c_void_p, _c.c_void_p, _c.c_void_p,               # kv_len q_pos (or NULL) out
         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # dtype batch S H Hkv
         _c.c_int, _c.c_int, _c.c_float, _c.c_void_p,         # D window sm_scale stream
     ],
@@ -92,6 +94,13 @@ def _require_int(name: str, t: torch.Tensor) -> None:
             f"{name} must be integer-typed (got {t.dtype}); a float "
             "length would be truncated silently"
         )
+
+
+def _check_q_pos(q_pos: Optional[torch.Tensor], kv_len: torch.Tensor) -> None:
+    if q_pos is not None:
+        _require_int("q_pos", q_pos)
+        if q_pos.shape != kv_len.shape:
+            raise ValueError(f"q_pos must be [B] like kv_len, got {tuple(q_pos.shape)}")
 
 
 def _check_range(name: str, t: torch.Tensor, upper: int) -> None:
@@ -151,10 +160,12 @@ def decode_attention(
     kv_len: torch.Tensor,   # [B] int
     window: int = 0,
     sm_scale: Optional[float] = None,
+    q_pos: Optional[torch.Tensor] = None,  # [B] int
 ) -> torch.Tensor:
     """Single-token GQA attention over a dense cache -> [B, H, D]: each
     sequence attends its first ``kv_len`` rows (with ``window``, the last
-    ``window`` of them); ``kv_len == 0`` gives exactly zero."""
+    ``window`` of them); ``kv_len == 0`` gives exactly zero.  With
+    ``q_pos``, masks as the model's plain attention does (``ref.py``)."""
     if q.ndim != 3:
         raise ValueError("q must be [B, H, D] (one token per sequence)")
     if q.shape[1] % k_cache.shape[2] != 0:
@@ -165,12 +176,13 @@ def decode_attention(
     if kv_len.shape != (q.shape[0],):
         raise ValueError(f"kv_len must be [B], got {tuple(kv_len.shape)}")
     _require_int("kv_len", kv_len)
+    _check_q_pos(q_pos, kv_len)
     s = k_cache.shape[1]
-    dev = _device_of(q, k_cache, v_cache, kv_len)
+    dev = _device_of(q, k_cache, v_cache, kv_len, *([] if q_pos is None else [q_pos]))
     if dev.type == "cpu":
         _check_range("kv_len", kv_len, s)
         return decode_attention_ref(q, k_cache, v_cache, kv_len, window=window,
-                                    sm_scale=sm_scale)
+                                    sm_scale=sm_scale, q_pos=q_pos)
 
     _check_cuda_operands((q,), (k_cache, v_cache))
     b, h, d = q.shape
@@ -179,10 +191,11 @@ def decode_attention(
     lens = _int32(kv_len)
     out = torch.empty_like(q)
     fn = build.load("decode_attention", SIGNATURES["decode_attention"])
+    qp = None if q_pos is None else _int32(q_pos)
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[q.dtype], b, s, h, k_cache.shape[2], d, int(window),
-        float(scale), _stream(dev),
+        None if qp is None else qp.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b, s,
+        h, k_cache.shape[2], d, int(window), float(scale), _stream(dev),
     )
     _check_launch("decode_attention", err)
     LAUNCHES["decode_attention"] += 1
@@ -197,8 +210,10 @@ def paged_decode_attention(
     kv_len: torch.Tensor,      # [B] int
     window: int = 0,
     sm_scale: Optional[float] = None,
+    q_pos: Optional[torch.Tensor] = None,  # [B] int
 ) -> torch.Tensor:
-    """Single-token GQA attention through the page table -> [B, H, D]."""
+    """Single-token GQA attention through the page table -> [B, H, D], as
+    ``decode_attention`` over each table row's n_pages * page rows."""
     if q.ndim != 3:
         raise ValueError("q must be [B, H, D] (one token per sequence)")
     if q.shape[1] % k_pages.shape[2] != 0:
@@ -214,13 +229,16 @@ def paged_decode_attention(
         raise ValueError("k_pages / v_pages must be [P, page, Hkv, D] matching q")
     _require_int("kv_len", kv_len)
     _require_int("page_table", page_table)
+    _check_q_pos(q_pos, kv_len)
     n_pages, page_size, num_pages = page_table.shape[1], k_pages.shape[1], k_pages.shape[0]
-    dev = _device_of(q, k_pages, v_pages, page_table, kv_len)
+    dev = _device_of(q, k_pages, v_pages, page_table, kv_len,
+                     *([] if q_pos is None else [q_pos]))
     if dev.type == "cpu":
         _check_range("kv_len", kv_len, n_pages * page_size)
         _check_range("page_table", page_table, num_pages - 1)
         return paged_decode_attention_ref(
-            q, k_pages, v_pages, page_table, kv_len, window=window, sm_scale=sm_scale
+            q, k_pages, v_pages, page_table, kv_len, window=window, sm_scale=sm_scale,
+            q_pos=q_pos,
         )
 
     _check_cuda_operands((q,), (k_pages, v_pages))
@@ -229,12 +247,14 @@ def paged_decode_attention(
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     q = q.contiguous()
     table, lens = _int32(page_table), _int32(kv_len)
+    qp = None if q_pos is None else _int32(q_pos)
     out = torch.empty_like(q)
     fn = build.load("paged_decode_attention", SIGNATURES["paged_decode_attention"])
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b, h, hkv, d,
-        num_pages, page_size, n_pages, int(window), float(scale), _stream(dev),
+        lens.data_ptr(), None if qp is None else qp.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], b, h, hkv, d, num_pages, page_size, n_pages, int(window),
+        float(scale), _stream(dev),
     )
     _check_launch("paged_decode_attention", err)
     LAUNCHES["paged_decode_attention"] += 1

@@ -250,6 +250,9 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
     case 64:
       return launch<T, 64>(q, k, v, out, batch, Tq, S, H, Hkv, causal, window, q_offset,
                            sm_scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, out, batch, Tq, S, H, Hkv, causal, window, q_offset,
+                            sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -257,8 +260,10 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {16, 64} (llama3.2-1b SMOKE and FULL).  Returns the
-// cudaError_t of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; D in {16, 64, 128} (llama3.2-1b and mixtral-8x7b
+// SMOKE 16, llama3.2-1b FULL 64, mixtral-8x7b FULL 128; at 128 a block takes 115,456 bytes
+// of shared memory, opted in by launch).  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                int dtype, int batch, int Tq, int S, int H, int Hkv, int D,
                                int causal, int window, int q_offset, float sm_scale,

@@ -47,8 +47,9 @@ SIGNATURES = {
 
 # dtype codes of the C entry point
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# head sizes the kernel is instantiated for: llama3.2-1b SMOKE and FULL
-HEAD_DIMS = (16, 64)
+# head sizes the kernel is instantiated for: llama3.2-1b and mixtral-8x7b
+# SMOKE (16), llama3.2-1b FULL (64), mixtral-8x7b FULL (128)
+HEAD_DIMS = (16, 64, 128)
 
 
 def reset_launches() -> None:

@@ -8,9 +8,10 @@ unstacked ``"remainder"`` blocks after them; layer ``i < n_periods *
 plen`` is ``periods[i % plen][...][i // plen]``.  The port keeps one dict
 per layer.  Every array keeps its layout (``wq [d, h, hd]``, ``wo [h,
 hd, d]``, ``w_gate [d, ff]``, ``tok [V, d]``, ``in_proj [d, e]``,
-``conv_w [K, C]``): no transpose.  The Mamba leaves ``dt_bias``,
-``A_log`` and ``D`` stay float32 whatever ``dtype`` is, as in the
-reference's init.
+``conv_w [K, C]``, and an MoE layer's ``router [d, e]``, ``w_gate`` and
+``w_up [e, d, ff]``, ``w_down [e, ff, d]``): no transpose.  The Mamba
+leaves ``dt_bias``, ``A_log`` and ``D`` and the MoE ``router`` stay float32
+whatever ``dtype`` is, as in the reference's init.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ import torch
 from repro_torch.config.base import ArchConfig
 from repro_torch.models.mamba2 import F32_LEAVES
 from repro_torch.models.transformer import check_supported
+
+# leaves kept in f32 whatever the params' dtype
+F32_KEYS = F32_LEAVES + ("router",)
 
 Params = Dict[str, Any]
 
@@ -46,7 +50,7 @@ def params_from_jax(
 
     def to_t(a, key: str = "") -> torch.Tensor:
         return torch.tensor(np.asarray(a, dtype=np.float32)).to(
-            device=device, dtype=torch.float32 if key in F32_LEAVES else dtype)
+            device=device, dtype=torch.float32 if key in F32_KEYS else dtype)
 
     plen = len(cfg.pattern)
     n_periods = cfg.num_layers // plen

@@ -191,9 +191,11 @@ def attention(
         if flash:
             out = flash_attention(q, k, v, causal=True, window=window)
         elif tq == 1 and use_kernels:
-            # kv_len = pos + 1 is the causal limit kv_pos <= pos and the
-            # valid prefix kv_pos < pos + 1 at once
-            out = decode_attention(q[:, 0], cache_k, cache_v, cache_pos + 1, window=window)
+            # kv_len = cache pos + 1 is the valid prefix; q_pos masks
+            # causally and sets the window, as _dense_attention does (an
+            # idle slot's position need not be its cache position)
+            out = decode_attention(q[:, 0], cache_k, cache_v, cache_pos + 1, window=window,
+                                   q_pos=positions[:, 0])
             out = out[:, None].to(v.dtype)
         else:
             kv_pos = torch.arange(s, dtype=positions.dtype,
@@ -263,7 +265,8 @@ def _paged_attention(
     if tq == 1 and use_kernels:
         paged_kv_append(k[:, 0], v[:, 0], k_pages, v_pages, page_table, cache_pos)
         out = paged_decode_attention(
-            q[:, 0], k_pages, v_pages, page_table, kv_len, window=window
+            q[:, 0], k_pages, v_pages, page_table, kv_len, window=window,
+            q_pos=positions[:, 0],
         )
         out = out[:, None].to(v.dtype)  # [B, 1, H, hd]
     else:

@@ -1,11 +1,12 @@
-"""Decoder over ``ArchConfig``: dense attention blocks and Mamba-2 blocks.
+"""Decoder over ``ArchConfig``: attention blocks and Mamba-2 blocks.
 
 Depth is a Python loop over layers, with one param dict and one cache
 dict per layer, each built for its layer's ``LayerSpec``.  (The
 reference scans over params stacked ``[n_periods, ...]`` per pattern
 position; ``models/convert.py`` unstacks them.)  Built here: self-
-attention (full or sliding) + SwiGLU blocks, and Mamba-2 blocks with no
-FFN; other block kinds (MoE, cross-attention) raise.
+attention (full, or sliding as a window mask) with a SwiGLU or MoE FFN,
+and Mamba-2 blocks with no FFN; other block kinds (cross-attention, a
+Mamba block with an FFN) raise.
 
 An attention layer's cache is the attention cache itself (linear, or
 paged with ``paged``); a Mamba layer's is ``{"mamba": {"conv", "ssm"}}``.
@@ -21,22 +22,28 @@ import torch
 from repro_torch.config.base import ArchConfig, AttentionKind, FFNKind, LayerSpec
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ArchConfig) -> None:
+    """A SLIDING layer runs on a linear or paged cache with its window as
+    a mask, which is what the reference's serving computes: its batcher
+    never builds the ring cache (``slot_pos``), and the port has none."""
     for i in range(cfg.num_layers):
         spec = cfg.layer_spec(i)
         if spec.is_mamba:
             ok = cfg.mamba is not None and spec.ffn == FFNKind.NONE
         else:
-            # SLIDING layers need the ring cache (slot_pos), not ported yet
-            ok = spec.ffn == FFNKind.DENSE and spec.attention == AttentionKind.FULL
+            ok = (spec.attention in (AttentionKind.FULL, AttentionKind.SLIDING)
+                  and (spec.ffn == FFNKind.DENSE
+                       or (spec.ffn == FFNKind.MOE and cfg.moe is not None)))
         if not ok:
             raise NotImplementedError(
-                f"{cfg.name} layer {i} ({spec}): only full self-attention + "
-                "SwiGLU blocks and FFN-less Mamba-2 blocks are ported"
+                f"{cfg.name} layer {i} ({spec}): only self-attention (full or "
+                "sliding) + SwiGLU or MoE blocks and FFN-less Mamba-2 blocks "
+                "are ported"
             )
 
 
@@ -49,7 +56,10 @@ def init_block(gen, cfg: ArchConfig, spec: LayerSpec, dtype, device) -> Params:
         p["attn"] = L.init_attention(gen, cfg, dtype, device)
     if spec.ffn != FFNKind.NONE:
         p["norm_ffn"] = zeros()
-        p["mlp"] = L.init_mlp(gen, cfg, dtype, device)
+        if spec.ffn == FFNKind.MOE:
+            p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg, dtype, device)
     return p
 
 
@@ -73,7 +83,10 @@ def apply_block(
     x = x + y
     if spec.ffn != FFNKind.NONE:
         h = L.rms_norm(x, params["norm_ffn"], cfg.norm_eps)
-        x = x + L.mlp(params["mlp"], h)
+        if spec.ffn == FFNKind.MOE:
+            x = x + MOE.moe_ffn(params["moe"], h, cfg.moe, use_kernels)
+        else:
+            x = x + L.mlp(params["mlp"], h)
     return x, new_cache
 
 

@@ -6,11 +6,11 @@ Device: every entry point runs on ``device``, which defaults to
 raises; the CPU runs only when the caller passes ``device="cpu"``.
 
 Dtype policy: params live in ``compute_dtype``, cast once when they are
-made or loaded, except the Mamba leaves ``dt_bias``, ``A_log`` and ``D``,
-which stay f32 as in the reference.  On the card that is bf16: weights,
-activations, KV pages and Mamba conv states are bf16, and norm
-statistics, attention scores, softmax, the SSD scan and its state, and
-logits stay f32.  The reference keeps f32 params beside bf16
+made or loaded, except the Mamba leaves ``dt_bias``, ``A_log`` and ``D``
+and the MoE router, which stay f32 as in the reference.  On the card
+that is bf16: weights, activations, KV pages and Mamba conv states are
+bf16, and norm statistics, attention scores, softmax, router logits and
+gates, the SSD scan and its state, and logits stay f32.  The reference keeps f32 params beside bf16
 activations, and JAX promotes each such product to f32; copied to the card, that would
 read every weight at twice the bytes in a bandwidth-bound decode.  The
 CPU parity tests run both packages at f32 throughout.
@@ -45,11 +45,11 @@ class Model:
     cfg: ArchConfig
     compute_dtype: torch.dtype = torch.bfloat16
     device: Union[str, torch.device] = "cuda"
-    # Attention (flash prefill, dense and paged decode) and the Mamba
-    # prefill scan through the CUDA kernels (their plain versions on the
-    # CPU); False takes the scatter + gather + dense-attention path and the
-    # plain chunked scan instead, the reference semantics the kernel path
-    # is held against.
+    # Attention (flash prefill, dense and paged decode), the Mamba prefill
+    # scan and the MoE gating through the CUDA kernels (their plain
+    # versions on the CPU); False takes the scatter + gather +
+    # dense-attention path, the plain chunked scan and the plain gating
+    # instead, the reference semantics the kernel path is held against.
     use_kernels: bool = True
 
     def __post_init__(self):

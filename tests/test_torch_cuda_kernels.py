@@ -8,7 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, ssd_scan, tcmm_assign  # noqa: E402
+from repro_torch.kernels import flash_attention, moe_gating, ssd_scan, tcmm_assign  # noqa: E402
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 
 
@@ -80,6 +80,48 @@ def test_cuda_paged_kv_append_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 16])
+def test_cuda_decode_attention_masks_at_the_query_position(cuda, dtype, window):
+    """B2 and B3 with q_pos, as the model calls them: rows at their cache
+    end, rows whose query sits below it, and idle-slot rows whose position
+    lies past the window (no key left: every row of the table weighs the
+    same), each against its plain version."""
+    kv_len = np.array([100, 64, 3, 1, 128, 40, 17, 9], dtype=np.int32)
+    q_pos = np.array([99, 20, 90, 50, 127, 39, 60, 8], dtype=np.int32)
+    q, kp, vp, table, kl = decode_case(20, 8, 8, 4, 128, 16, 8, kv_len)
+    tq, tkp, tvp, tt, tkl, tqp = [t.to(cuda) for t in as_torch(q, kp, vp, table, kl, q_pos)]
+    tq, tkp, tvp = (t.to(dtype) for t in (tq, tkp, tvp))
+    kc = ref.gather_pages(tkp, tt).contiguous()
+    vc = ref.gather_pages(tvp, tt).contiguous()
+    paged = ops.paged_decode_attention(tq, tkp, tvp, tt, tkl, window=window, q_pos=tqp)
+    dense = ops.decode_attention(tq, kc, vc, tkl, window=window, q_pos=tqp)
+    plain = ref.paged_decode_attention_ref(tq, tkp, tvp, tt, tkl, window=window, q_pos=tqp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(paged.float(), plain.float(), **CUDA_TOL[dtype])
+    torch.testing.assert_close(dense.float(), plain.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_paged_kv_append_row_named_twice_takes_the_last_slot(cuda):
+    """Eight idle slots on one row of scratch page 0, and two live slots on
+    one row: the last slot's row lands, equal to the plain version's,
+    page 0 included."""
+    _, kp, vp, table, _ = decode_case(18, 16, 8, 1, 128, 16, 4, [5] * 16)
+    table[8:] = 0
+    table[1] = table[0]
+    pos = np.full(16, 7, dtype=np.int32)
+    rng = np.random.default_rng(19)
+    new = rng.standard_normal((2, 16, 8, 128)).astype(np.float32)
+    tk, tv, tkp, tvp, tt, tpos = [t.to(cuda) for t in as_torch(new[0], new[1], kp, vp, table, pos)]
+    want_k, want_v = ref.paged_kv_append_ref(tk, tv, tkp.clone(), tvp.clone(), tt, tpos)
+    got_k, got_v = ops.paged_kv_append(tk, tv, tkp, tvp, tt, tpos)
+    torch.cuda.synchronize()
+    assert torch.equal(got_k, want_k) and torch.equal(got_v, want_v)
+    assert torch.equal(got_k[0, 7], tk[15]) and torch.equal(got_v[table[0, 0], 7], tv[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,window", [(1024, 0), (1000, 0), (1024, 128), (1000, 37)])
 def test_cuda_dense_decode_attention_matches_plain(cuda, dtype, s, window):
     """B3 at llama3.2-1b's heads over 16 rows of ragged lengths: empty,
@@ -127,6 +169,44 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, t, s, causal, window, q
     torch.testing.assert_close(out.float(), plain.float(), **CUDA_TOL[dtype])
     if (t, s, window, q_offset) == (16, 64, 32, 128):
         assert torch.all(out == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,window", [(32, 0), (512, 0), (512, 128), (300, 16)])
+def test_cuda_flash_attention_at_mixtral_heads_matches_plain(cuda, dtype, t, window):
+    """B4 at mixtral-8x7b's heads (32 over 8, D 128: the instantiation that
+    takes 115,456 bytes of shared memory), B = 1, causal, T = S."""
+    rng = np.random.default_rng(15)
+    q = rng.standard_normal((1, t, 32, 128)).astype(np.float32)
+    k = rng.standard_normal((1, t, 8, 128)).astype(np.float32)
+    v = rng.standard_normal((1, t, 8, 128)).astype(np.float32)
+    tq, tk, tv = [x.to(cuda).to(dtype) for x in as_torch(q, k, v)]
+    before = flash_attention.LAUNCHES["flash_attention"]
+    out = flash_attention.flash_attention(tq, tk, tv, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash_attention"] == before + 1
+    plain = flash_attention.attention_ref(tq, tk, tv, window=window)
+    torch.testing.assert_close(out.float(), plain.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_at_mixtral_heads_matches_plain(cuda, dtype):
+    """B2 over pages and B3 over a linear cache at mixtral-8x7b's heads
+    (32 over 8, D 128), 8 rows of ragged lengths with an empty one."""
+    q, kp, vp, table, kl = decode_case(16, 8, 8, 4, 128, 16, 8, [0, 128, 17, 1, 64, 100, 33, 127])
+    args = [t.to(cuda) for t in as_torch(q, kp, vp, table, kl)]
+    args[:3] = [t.to(dtype) for t in args[:3]]
+    out = ops.paged_decode_attention(*args, window=40)
+    plain = ref.paged_decode_attention_ref(*args, window=40)
+    kc = ref.gather_pages(args[1], args[3]).contiguous()
+    vc = ref.gather_pages(args[2], args[3]).contiguous()
+    dense = ops.decode_attention(args[0], kc, vc, args[4], window=40)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain.float(), **CUDA_TOL[dtype])
+    torch.testing.assert_close(dense.float(), plain.float(), **CUDA_TOL[dtype])
+    assert torch.all(out[0] == 0) and torch.all(dense[0] == 0)
 
 
 @pytest.mark.cuda
@@ -238,3 +318,51 @@ def test_cuda_tcmm_assign_point_on_a_centroid_maps_to_it(cuda):
                                       torch.ones(32, dtype=torch.bool, device=cuda))
     torch.cuda.synchronize()
     assert (idx == 7).all() and (d2.abs() <= 1e-4).all()
+
+
+# B5 repeats its plain version's arithmetic operation for operation (ref.py),
+# so indices, positions and keep are exact; gates to the reference test's
+# rtol 1e-5 / atol 1e-6 (tests/test_kernels.py::test_moe_gating_matches_ref).
+MOE_CASES = ([(n, 8, 2, cap, bn) for n in (16, 512, 2048)
+              for cap in (int(n * 2 * 1.25 / 8), n * 2) for bn in (n, 256, 64)]
+             + [(512, 16, 2, 80, 128), (256, 128, 1, 4, 128), (100, 8, 2, 20, 32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,k,cap,block_n", MOE_CASES)
+def test_cuda_moe_gating_matches_plain(cuda, n, e, k, cap, block_n):
+    logits = torch.from_numpy(
+        np.random.default_rng(17).standard_normal((n, e)).astype(np.float32)).to(cuda)
+    before = moe_gating.LAUNCHES["moe_gating"]
+    got = moe_gating.moe_gating(logits, k, cap, block_n=block_n)
+    torch.cuda.synchronize()
+    assert moe_gating.LAUNCHES["moe_gating"] == before + 1
+    bn = moe_gating.ops.block_size(n, block_n)
+    want = moe_gating.moe_gating_ref(logits, k, cap, block_n=bn)
+    for name, g, w in zip(("idx", "pos", "keep"), got[::2] + got[3:], want[::2] + want[3:]):
+        assert torch.equal(g, w), name
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gating_ties_go_to_the_lowest_index(cuda):
+    rows = [[1.0, 3.0, 3.0, 0.0], [2.0, 2.0, 2.0, 2.0], [0.5, -1.0, 0.5, 0.5],
+            [-4.0, 7.0, -4.0, 7.0]]
+    logits = torch.tensor(rows * 64, device=cuda)
+    idx, gates, pos, keep = moe_gating.moe_gating(logits, 2, 40, block_n=64)
+    torch.cuda.synchronize()
+    assert idx[:4].tolist() == [[1, 2], [0, 1], [0, 2], [1, 3]]
+    want = moe_gating.moe_gating_ref(logits, 2, 40, block_n=64)
+    assert torch.equal(idx, want[0]) and torch.equal(pos, want[2]) and torch.equal(keep, want[3])
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gating_refuses_what_it_cannot_take(cuda):
+    before = moe_gating.LAUNCHES["moe_gating"]
+    with pytest.raises(TypeError, match="float32"):
+        moe_gating.moe_gating(torch.zeros((4, 8), device=cuda, dtype=torch.bfloat16), 2, 8)
+    with pytest.raises(ValueError, match="E <= 128"):
+        moe_gating.moe_gating(torch.zeros((4, 256), device=cuda), 2, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gating.moe_gating(torch.zeros((8, 4), device=cuda).t(), 2, 8)
+    assert moe_gating.LAUNCHES["moe_gating"] == before

@@ -94,6 +94,74 @@ def test_paged_kv_append_matches_reference(page):
     np.testing.assert_array_equal(out_k.numpy()[untouched], kp[untouched])
 
 
+def test_paged_kv_append_row_named_twice_takes_the_last_slot():
+    """Idle slots (all-zero table rows) at one position name the same row
+    of scratch page 0, and a live page's row may be named twice too: the
+    last slot's row lands, as the reference oracle's indexed update leaves
+    it, page 0 included."""
+    b, hkv, d, page, n_pages = 5, 2, 8, 4, 2
+    _, kp, vp, table, _ = decode_case(4, b, hkv, 1, d, page, n_pages, [3] * b)
+    table[[1, 2, 4]] = 0  # three idle slots
+    table[3] = table[0]   # slot 3 shares slot 0's pages
+    pos = np.array([5, 2, 2, 5, 2], dtype=np.int32)  # 1, 2, 4 on page 0 row 2; 0, 3 one row
+    rng = np.random.default_rng(5)
+    k_new = rng.standard_normal((b, hkv, d)).astype(np.float32)
+    v_new = rng.standard_normal((b, hkv, d)).astype(np.float32)
+    out_k, out_v = ops.paged_kv_append(*as_torch(k_new, v_new, kp, vp, table, pos))
+    jk, jv = jax_paged_append_ref(*[jnp.asarray(a) for a in (k_new, v_new, kp, vp, table, pos)])
+    np.testing.assert_array_equal(out_k.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(out_v.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(out_k.numpy()[0, 2], k_new[4])
+    np.testing.assert_array_equal(out_v.numpy()[table[0, 1], 1], v_new[3])
+
+
+def masked_attention_np(q, k, v, kv_len, q_pos, window):
+    """The model's plain attention for one query per row (numpy, f64):
+    keys p < kv_len, p <= q_pos, p > q_pos - window; a row with no key
+    left gives equal weight to every row, as a softmax over -1e30 does."""
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    out = np.zeros((b, h, d))
+    for i in range(b):
+        p = np.arange(s)
+        keep = (p < kv_len[i]) & (p <= q_pos[i])
+        if window > 0:
+            keep &= p > q_pos[i] - window
+        for j in range(h):
+            kv = j // (h // hkv)
+            w = np.ones(s)
+            if keep.any():
+                scores = k[i, :, kv].astype(np.float64) @ q[i, j] / np.sqrt(d)
+                scores = np.where(keep, scores, -np.inf)
+                w = np.exp(scores - scores.max())
+            out[i, j] = (w / w.sum()) @ v[i, :, kv]
+    return out
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_decode_attention_masks_at_the_query_position(window):
+    """With ``q_pos`` both decode kernels' plain versions mask as the
+    model's plain attention does: causal at q_pos (an idle batcher slot's
+    position need not be kv_len - 1), and a row with no key left attends
+    uniformly to every row (rows 2 and 3 under the window).  At q_pos =
+    kv_len - 1 it is the kernels' own contract."""
+    b, hkv, g, d, page, n_pages = 5, 2, 2, 8, 4, 3
+    kv_len = np.array([7, 9, 3, 1, 12], dtype=np.int32)
+    q_pos = np.array([6, 4, 30, 20, 11], dtype=np.int32)
+    q, kp, vp, table, _ = decode_case(6, b, hkv, g, d, page, n_pages, kv_len)
+    kd, vd = (gather_pages(torch.from_numpy(x), torch.from_numpy(table)).numpy()
+              for x in (kp, vp))
+    want = masked_attention_np(q, kd, vd, kv_len, q_pos, window)
+    tq, tkp, tvp, tt, tkl, tqp = as_torch(q, kp, vp, table, kv_len, q_pos)
+    paged = ops.paged_decode_attention(tq, tkp, tvp, tt, tkl, window=window, q_pos=tqp)
+    dense = ops.decode_attention(tq, *as_torch(kd, vd), tkl, window=window, q_pos=tqp)
+    np.testing.assert_allclose(paged.numpy(), want, **TOL)
+    np.testing.assert_allclose(dense.numpy(), want, **TOL)
+    at_end = ops.paged_decode_attention(tq, tkp, tvp, tt, tkl, window=window, q_pos=tkl - 1)
+    np.testing.assert_array_equal(
+        at_end.numpy(), ops.paged_decode_attention(tq, tkp, tvp, tt, tkl, window=window).numpy())
+
+
 def _decode_args(**override):
     q, kp, vp, table, kl = decode_case(3, 2, 2, 2, 8, 4, 2, [3, 8])
     args = dict(q=q, k_pages=kp, v_pages=vp, page_table=table, kv_len=kl)

@@ -67,27 +67,28 @@ def _set_leaves(cache, key, value):
     return tree_map_with_path(put, cache)
 
 
-@pytest.mark.parametrize("mode", ["kernels", "plain", "linear"])
-def test_prefill_then_decode_matches_reference(setup, mode):
-    jcfg, jparams, cfg, params = setup
+def prefill_then_decode(jcfg, jparams, cfg, params, mode, b=B, t=T, max_len=MAX_LEN):
+    """Prefill, then three ragged decode steps, on both packages from one
+    set of params: logits at every step, greedy tokens, and the caches
+    after, compared."""
     jmodel = jax_build_model(jcfg, compute_dtype=jnp.float32,
                              use_pallas=(mode == "kernels"))
     model = build_model(cfg, compute_dtype=torch.float32, device="cpu",
                         use_kernels=(mode != "plain"))
     rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab_size, size=(B, T)).astype(np.int32)
+    prompt = rng.integers(0, cfg.vocab_size, size=(b, t)).astype(np.int32)
 
     if mode == "linear":
-        jcache = jmodel.init_cache(B, MAX_LEN)
-        cache = model.init_cache(B, MAX_LEN)
+        jcache = jmodel.init_cache(b, max_len)
+        cache = model.init_cache(b, max_len)
     else:
-        n_slot = MAX_LEN // PAGE
-        num_pages = 1 + B * n_slot
-        table = (1 + rng.permutation(B * n_slot)).reshape(B, n_slot).astype(np.int32)
+        n_slot = max_len // PAGE
+        num_pages = 1 + b * n_slot
+        table = (1 + rng.permutation(b * n_slot)).reshape(b, n_slot).astype(np.int32)
         jcache = _set_leaves(
-            jmodel.init_cache(B, MAX_LEN, paged=JaxPagedSpec(num_pages, PAGE)),
+            jmodel.init_cache(b, max_len, paged=JaxPagedSpec(num_pages, PAGE)),
             "page_table", table)
-        cache = model.init_cache(B, MAX_LEN, paged=PagedSpec(num_pages, PAGE))
+        cache = model.init_cache(b, max_len, paged=PagedSpec(num_pages, PAGE))
         for layer in cache:
             layer["page_table"] = torch.from_numpy(table.copy())
 
@@ -95,12 +96,12 @@ def test_prefill_then_decode_matches_reference(setup, mode):
                                      last_only=True)
     logits, cache = model.prefill(params, {"tokens": torch.from_numpy(prompt)}, cache,
                                   last_only=True)
-    assert logits.dtype == torch.float32 and tuple(logits.shape) == (B, 1, cfg.vocab_size)
+    assert logits.dtype == torch.float32 and tuple(logits.shape) == (b, 1, cfg.vocab_size)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=ATOL)
 
     # Ragged decode: rows 1 and 2 continue as if their prompts were shorter
     # (their later cache rows are then masked, stale context).
-    pos = np.array([T, T - 2, T - 1], dtype=np.int32)
+    pos = np.array([t, t - 2, t - 1], dtype=np.int32)
     jcache = _set_leaves(jcache, "pos", pos)
     for layer in cache:
         layer["pos"] = torch.from_numpy(pos.copy())
@@ -116,13 +117,20 @@ def test_prefill_then_decode_matches_reference(setup, mode):
         pos = pos + 1
 
     # the caches after prefill + decode: per-layer on the port's side,
-    # stacked [n_periods, ...] on the reference's
+    # stacked [n_periods, ...] per pattern position on the reference's
     key = "k" if mode == "linear" else "k_pages"
+    plen = len(cfg.pattern)
     stacked = np.stack([layer[key].numpy() for layer in cache])
-    ref = np.asarray(jcache["periods"][0]["attn"][key])
+    ref = np.stack([np.asarray(jcache["periods"][i % plen]["attn"][key][i // plen])
+                    for i in range(cfg.num_layers)])
     # page 0 is the scratch page: never compared
     sl = (slice(None),) if mode == "linear" else (slice(None), slice(1, None))
     np.testing.assert_allclose(stacked[sl], ref[sl], atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["kernels", "plain", "linear"])
+def test_prefill_then_decode_matches_reference(setup, mode):
+    prefill_then_decode(*setup, mode)
 
 
 def test_tied_embedding_is_scaled_by_sqrt_d_model(setup):
@@ -138,19 +146,102 @@ def test_tied_embedding_is_scaled_by_sqrt_d_model(setup):
 
 
 def test_sliding_layers_are_refused_until_the_ring_cache_is_ported():
-    """A SLIDING layer would run on a linear cache, which is not what the
-    reference's ring cache computes past the window: it is refused, as
-    Mamba blocks with an FFN are."""
+    """The ring cache (``slot_pos``) is still unported, but no serving path
+    of the reference builds one: on a linear or paged cache the window is
+    a mask.  So a SLIDING layer is accepted and must match the reference
+    past its window (window 4, a 5-token prompt, three decode steps), on
+    the kernel path over pages and on a linear cache; a Mamba block with
+    an FFN is still refused."""
     import dataclasses
 
-    from repro_torch.config.base import AttentionKind, LayerSpec
+    from repro.config.base import AttentionKind as JaxAttentionKind
+    from repro.config.base import LayerSpec as JaxLayerSpec
+    from repro_torch.config.base import AttentionKind, FFNKind, LayerSpec
 
+    jcfg = jax_get_arch("llama3.2-1b", smoke=True)
+    jcfg = dataclasses.replace(jcfg, pattern=(
+        JaxLayerSpec(attention=JaxAttentionKind.SLIDING, window=4), JaxLayerSpec()))
     cfg = get_arch("llama3.2-1b", smoke=True)
-    swa = dataclasses.replace(cfg, pattern=(LayerSpec(attention=AttentionKind.SLIDING, window=4),
-                                            LayerSpec()))
+    cfg = dataclasses.replace(cfg, pattern=(
+        LayerSpec(attention=AttentionKind.SLIDING, window=4), LayerSpec()))
+    jparams = jax_build_model(jcfg, compute_dtype=jnp.float32).init(jax.random.PRNGKey(1))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             dtype=torch.float32, device="cpu")
+    for mode in ("kernels", "linear"):
+        prefill_then_decode(jcfg, jparams, cfg, params, mode)
+
+    mamba = get_arch("mamba2-370m", smoke=True)
+    with_ffn = dataclasses.replace(mamba, pattern=(LayerSpec(attention=AttentionKind.NONE,
+                                                             ffn=FFNKind.DENSE, is_mamba=True),))
     with pytest.raises(NotImplementedError, match="layer 0"):
-        build_model(swa, compute_dtype=torch.float32, device="cpu")
-    build_model(cfg, compute_dtype=torch.float32, device="cpu")  # all-FULL still builds
+        build_model(with_ffn, compute_dtype=torch.float32, device="cpu")
+    build_model(mamba, compute_dtype=torch.float32, device="cpu")  # FFN-less still builds
+
+
+# --- mixtral-8x7b SMOKE: sliding window 16, MoE 4 experts top-2 ----------------
+
+MIXTRAL = "mixtral-8x7b"
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    jcfg = jax_get_arch(MIXTRAL, smoke=True)
+    jparams = jax_build_model(jcfg, compute_dtype=jnp.float32).init(jax.random.PRNGKey(0))
+    cfg = get_arch(MIXTRAL, smoke=True)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             dtype=torch.float32, device="cpu")
+    return jcfg, jparams, cfg, params
+
+
+def with_capacity(cfg, capacity_factor):
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            capacity_factor=capacity_factor))
+
+
+@pytest.mark.parametrize("capacity_factor", [0.0, 1.25])
+@pytest.mark.parametrize("mode", ["kernels", "plain", "linear"])
+def test_mixtral_prefill_then_decode_matches_reference(mixtral, mode, capacity_factor):
+    """Prompts of 20 tokens (past the window of 16), dropless and at the
+    published capacity factor, on both sides alike."""
+    jcfg, jparams, cfg, params = mixtral
+    prefill_then_decode(with_capacity(jcfg, capacity_factor), jparams,
+                        with_capacity(cfg, capacity_factor), params, mode, t=20, max_len=32)
+
+
+def test_converter_carries_moe_leaves_with_an_f32_router(mixtral):
+    jcfg, jparams, cfg, _ = mixtral
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             dtype=torch.bfloat16, device="cpu")
+    e, d, ff = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    shapes = {"router": (d, e), "w_gate": (e, d, ff), "w_up": (e, d, ff), "w_down": (e, ff, d)}
+    for i, layer in enumerate(params["layers"]):
+        assert "mlp" not in layer and set(layer["moe"]) == set(shapes)
+        for name, shape in shapes.items():
+            got = layer["moe"][name]
+            assert tuple(got.shape) == shape
+            assert got.dtype == (torch.float32 if name == "router" else torch.bfloat16)
+            want = np.asarray(jparams["periods"][0]["moe"][name][i], dtype=np.float32)
+            if name == "router":
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                np.testing.assert_array_equal(
+                    got.float().numpy(), torch.tensor(want).bfloat16().float().numpy())
+
+
+def test_mixtral_config_copy_matches_reference():
+    for smoke in (False, True):
+        mine, theirs = get_arch(MIXTRAL, smoke), jax_get_arch(MIXTRAL, smoke)
+        for f in ("family", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+                  "vocab_size", "head_dim", "max_seq_len", "rope_theta", "norm_eps",
+                  "tie_embeddings", "supports_long_context"):
+            assert getattr(mine, f) == getattr(theirs, f), f
+        for f in ("num_experts", "top_k", "capacity_factor", "router_jitter",
+                  "aux_loss_weight"):
+            assert getattr(mine.moe, f) == getattr(theirs.moe, f), f
+        assert [(p.attention.value, p.ffn.value, p.window, p.is_mamba) for p in mine.pattern] \
+            == [(p.attention.value, p.ffn.value, p.window, p.is_mamba) for p in theirs.pattern]
 
 
 @pytest.fixture

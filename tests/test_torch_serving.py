@@ -1,8 +1,12 @@
 """The port's serving layer: ``PagePool`` accounting, the paged
 continuous batcher token-for-token against the reference package's on
-llama3.2-1b SMOKE (f32, same params, same requests), including more
-requests than slots and a pool tight enough to force preemption, and the
-dense batcher on llama3.2-1b and mamba2-370m SMOKE likewise."""
+llama3.2-1b and mixtral-8x7b SMOKE (f32, same params, same requests),
+including more requests than slots and a pool tight enough to force
+preemption, and the dense batcher on llama3.2-1b, mixtral-8x7b and
+mamba2-370m SMOKE likewise.  Mixtral runs dropless and at capacity factor
+1.25 on both sides."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,11 +28,16 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, PagedSpec, PagePool, Request  # noqa: E402
 
 
-def _both_models(arch):
+def _both_models(arch, capacity_factor=None):
+    """Both packages' SMOKE models of ``arch`` on one set of params; an MoE
+    arch may be given another capacity factor on both sides."""
     jcfg = jax_get_arch(arch, smoke=True)
+    cfg = get_arch(arch, smoke=True)
+    if capacity_factor is not None:
+        jcfg, cfg = (dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=capacity_factor)) for c in (jcfg, cfg))
     jmodel = jax_build_model(jcfg, compute_dtype=jnp.float32)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    cfg = get_arch(arch, smoke=True)
     model = build_model(cfg, compute_dtype=torch.float32, device="cpu")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                              dtype=torch.float32, device="cpu")
@@ -43,6 +52,11 @@ def models():
 @pytest.fixture(scope="module")
 def mamba_models():
     return _both_models("mamba2-370m")
+
+
+@pytest.fixture(scope="module", params=[0.0, 1.25], ids=["dropless", "capacity_1.25"])
+def mixtral_models(request):
+    return _both_models("mixtral-8x7b", capacity_factor=request.param)
 
 
 def serve_both(models, prompts, max_new, paged=None, **kw):
@@ -173,6 +187,52 @@ def test_dense_admission_overwrites_every_cache_tensor_of_the_slot(mamba_models)
     alone.submit(again)
     alone.run_until_drained()
     assert req.output == again.output
+
+
+def mixtral_prompts(n, seed):
+    """Prompts of 20, 29 and 40 tokens, past mixtral SMOKE's window of 16
+    (three lengths: the reference compiles its prefill once per length)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 512, size=(20, 29, 40)[i % 3]).tolist() for i in range(n)]
+
+
+def test_paged_batcher_serves_mixtral_as_reference(mixtral_models):
+    """7 requests on 3 slots: the last ticks run idle slots through the MoE,
+    and at capacity 1.25 their tokens compete with the busy ones for
+    capacity (1 per expert at 3 tokens: drops), so equal tokens show that
+    the port feeds idle slots what the reference feeds them."""
+    jb, jout, tb, tout = serve_both(mixtral_models, mixtral_prompts(7, 1), 6,
+                                    paged=dict(num_pages=49, page_size=4), slots=3, max_len=64)
+    assert tout == jout
+    assert all(len(o) == 6 for o in tout)
+    assert tb.steps == jb.steps and tb.preemptions == 0
+    assert_drained(tb)
+
+
+def test_paged_mixtral_tight_pool_preempts_as_reference(mixtral_models):
+    """16 usable pages for 3 slots of 20-40-token prompts: admissions
+    stall and slots are preempted (17 times), on both sides alike.  Freed
+    and preempted slots ride idle with a position that is not their cache
+    position, and at capacity 1.25 their tokens take expert capacity from
+    the busy ones: equal tokens need the decode kernels to mask an idle
+    slot's row at its own position, as the reference's attention does."""
+    rng = np.random.default_rng(32)
+    prompts = [rng.integers(0, 512, size=int(rng.integers(20, 41))).tolist() for _ in range(6)]
+    jb, jout, tb, tout = serve_both(mixtral_models, prompts, 8,
+                                    paged=dict(num_pages=17, page_size=4), slots=3, max_len=64)
+    assert tout == jout
+    assert tb.preemptions > 0, "the pool was never tight"
+    assert (tb.preemptions, tb.admit_stalls, tb.steps) == (
+        jb.preemptions, jb.admit_stalls, jb.steps)
+    assert_drained(tb)
+
+
+def test_dense_batcher_serves_mixtral_as_reference(mixtral_models):
+    jb, jout, tb, tout = serve_both(mixtral_models, mixtral_prompts(4, 3), 5,
+                                    slots=2, max_len=64)
+    assert tout == jout
+    assert tb.steps == jb.steps
+    assert_drained(tb)
 
 
 def test_eos_frees_the_slot_early_as_in_reference(models):

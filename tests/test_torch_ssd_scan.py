@@ -165,6 +165,6 @@ def test_missing_compiler_raises_instead_of_falling_back(monkeypatch, tmp_path):
 def test_build_finds_every_kernel_source():
     assert set(build.sources()) == {"paged_kv_append", "paged_decode_attention",
                                     "decode_attention", "flash_attention",
-                                    "ssd_chunked", "tcmm_assign"}
+                                    "ssd_chunked", "tcmm_assign", "moe_gating"}
     with pytest.raises(KeyError):
         build.build_all(["no_such_kernel"])
