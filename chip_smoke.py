@@ -17,14 +17,18 @@ Phases, one JSON line each:
            plain version and one library call, at those lengths and at the
            serving phase's (32..544 rows in a 64-page table).
   flash_kernels
-           the flash attention kernel (B4) against its plain version at
-           llama3.2-1b's heads (H=32, Hkv=8, D=64), B=2, f32 and bf16: T=S
-           in {1, 32, 200, 512, 2048} causal with window 0 and 128, a
-           64-row chunk at q_offset 256 of 320 keys, a case whose every
-           row is masked (exactly 0), one non-causal case; v all ones gives
-           1 to 1e-4.  Then bf16 times at B=1 over the served prompt
-           lengths and at T=2048, beside the bound, the plain version and
-           scaled_dot_product_attention.
+           the flash attention kernel (B4: f32 on the CUDA cores, bf16 on
+           the tensor cores) against its plain version at llama3.2-1b's
+           heads (H=32, Hkv=8, D=64), B=2, f32 and bf16: T=S in {1, 32,
+           200, 512, 2048} causal with window 0 and 128, a 64-row chunk at
+           q_offset 256 of 320 keys, a case whose every row is masked
+           (exactly 0), one non-causal case; bf16 with q scaled by 8
+           (large scores); v all ones gives 1 to 1e-4 (f32) and 4e-3
+           (bf16).  Then bf16 times at B=1 over the served prompt lengths
+           and at T=2048, beside the bound, the plain version and
+           scaled_dot_product_attention (SDPA), with 1 and 4 query heads a
+           block; B4 must take at most 4x SDPA's time at T=2048 and on
+           the served prompts' mean, and its TFLOP/s at T=2048 are read.
   dense_decode_kernels
            the dense decode kernel (B3) against its plain version, f32 and
            bf16, B=16, S in {1024, 1000}, kv_len ragged with 0, S and one
@@ -106,8 +110,9 @@ Phases, one JSON line each:
   mixtral_attention_kernels
            B1, B2, B3 and B4 at mixtral-8x7b's heads (H=32, Hkv=8, D=128)
            against their plain versions, f32 and bf16, under TOL (B4 at T
-           in {32, 512, 2048}, windows 0 and 128); bf16 times of B1, B2 and
-           B4 at the serving lengths.
+           in {32, 512, 2048}, windows 0 and 128, and bf16 with q scaled by
+           8); bf16 times of B1, B2 and B4 at the serving lengths; B4 at
+           most 4x SDPA's time at T=2048.
   mixtral_smoke
            mixtral-8x7b SMOKE at f32 (window 16, 4 experts, top 2), dropless
            and at capacity factor 1.25: prefill + ragged decode logits of
@@ -197,9 +202,10 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=1.6e-2, atol=2e-3)}
 # FULL decode step in bf16, kernel path against plain path, as fractions
 # of the plain logits' RMS.  The plain path rounds the softmax weights to
-# bf16 before the value product, as the reference does; the kernel keeps
-# them in f32.  That difference, carried through 16 layers, read 0.086
-# (max) and 0.0157 (RMS) of the RMS with seed 0; the limits are about 2x.
+# bf16 before the value product, as the reference does; the decode kernels
+# (B2, B3) keep them in f32 and B4 carries them as two bf16 terms (about
+# 16 bits).  That difference, carried through 16 layers, read 0.086 (max)
+# and 0.0157 (RMS) of the RMS with seed 0; the limits are about 2x.
 LOGIT_TOL = dict(max_abs=0.2, rms=0.03)
 KERNELS = {
     "paged_kv_append": dict(
@@ -475,13 +481,18 @@ SDPA = torch.nn.functional.scaled_dot_product_attention  # timed as a yardstick 
 # and one non-causal case
 FLASH_CASES = ([(t, t, True, w, 0) for t in (1, 32, 200, 512, 2048) for w in (0, 128)]
                + [(64, 320, True, 0, 256), (16, 64, True, 32, 128), (200, 200, False, 0, 0)])
+# the most B4's bf16 time may be, as a multiple of SDPA's read in the same run
+FLASH_SPEED_GATE = 4.0
+# |out - 1| with v all ones: f32 sums only; in bf16 the output may round
+# to 1's lower neighbour (2**-8 = 3.9e-3 below it) and no further
+ONES_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
 
 
 def flash_inputs(seed: int, b: int, t: int, s: int, dev, dtype, ones_v: bool = False,
-                 heads: dict = LLAMA_HEADS):
+                 heads: dict = LLAMA_HEADS, q_scale: float = 1.0):
     h, hkv, d = heads["h"], heads["hkv"], heads["d"]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    q = (torch.randn((b, t, h, d), generator=gen, device=dev) * q_scale).to(dtype)
     k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
     v = (torch.ones((b, s, hkv, d), device=dev, dtype=dtype) if ones_v else
          torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype))
@@ -505,49 +516,79 @@ def flash_work(b: int, t: int, s: int, causal: bool, window: int, q_offset: int,
     return n_bytes, b * 4 * d * h * kept_pairs(t, s, causal, window, q_offset)
 
 
+def flash_case(dev, seed: int, b: int, t: int, s: int, causal: bool, window: int,
+               q_offset: int, dtype, heads: dict = LLAMA_HEADS, q_scale: float = 1.0) -> dict:
+    """One B4 call against its plain version on the same inputs."""
+    q, k, v = flash_inputs(seed, b, t, s, dev, dtype, heads=heads, q_scale=q_scale)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = flash_attention.flash_attention(q, k, v, **kw)
+    plain = flash_attention.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    case = dict(dtype=str(dtype), t=t, s=s, causal=causal, window=window, q_offset=q_offset,
+                q_scale=q_scale, max_abs_err=(out.float() - plain.float()).abs().max().item(),
+                within_tol=bool(torch.allclose(out.float(), plain.float(), **TOL[dtype])))
+    if kept_pairs(t, s, causal, window, q_offset) == 0:
+        case["exactly_zero"] = bool((out == 0).all())
+    return case
+
+
+def ones_case(dev, seed: int, t: int, window: int, dtype, heads: dict = LLAMA_HEADS) -> dict:
+    q, k, v = flash_inputs(seed, 1, t, t, dev, dtype, ones_v=True, heads=heads)
+    out = flash_attention.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    err = (out.float() - 1).abs().max().item()
+    return dict(dtype=str(dtype), t=t, window=window, max_abs_out_minus_1=err,
+                within=err <= ONES_TOL[dtype])
+
+
+def flash_speed(timings: dict, heads: dict) -> dict:
+    """B4's bf16 time over SDPA's at T = 2048 and on the served prompts'
+    mean per launch, and both TFLOP/s at T = 2048."""
+    t2048, main = timings["t2048"], timings["main_path_per_launch"]
+    ops_2048 = flash_work(1, 2048, 2048, True, 0, 0, 2, heads)[1]
+    return dict(over_sdpa_t2048=t2048["kernel_ms"] / t2048["library_ms"],
+                over_sdpa_main_path=main["kernel_ms"] / main["library_ms"],
+                tflops_t2048=ops_2048 / t2048["kernel_ms"] / 1e9,
+                sdpa_tflops_t2048=ops_2048 / t2048["library_ms"] / 1e9)
+
+
 def phase_flash_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
     """B4 against its plain version at llama3.2-1b's heads (B = 2), f32 and
     bf16; then bf16 times at B = 1, causal, q_offset 0, at every served
-    prompt length and at T = 2048."""
-    cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for t, s, causal, window, q_offset in FLASH_CASES:
-            q, k, v = flash_inputs(seed, 2, t, s, dev, dtype)
-            kw = dict(causal=causal, window=window, q_offset=q_offset)
-            out = flash_attention.flash_attention(q, k, v, **kw)
-            plain = flash_attention.attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = (out.float() - plain.float()).abs()
-            case = dict(dtype=str(dtype), t=t, s=s, causal=causal, window=window,
-                        q_offset=q_offset, max_abs_err=err.max().item(),
-                        within_tol=bool(torch.allclose(out.float(), plain.float(), **TOL[dtype])))
-            if kept_pairs(t, s, causal, window, q_offset) == 0:
-                case["exactly_zero"] = bool((out == 0).all())
-            cases.append(case)
-    ones = []
-    for t, window in ((512, 0), (2048, 128)):
-        q, k, v = flash_inputs(seed + 1, 1, t, t, dev, torch.float32, ones_v=True)
-        out = flash_attention.flash_attention(q, k, v, window=window)
-        torch.cuda.synchronize()
-        ones.append(dict(t=t, window=window, max_abs_out_minus_1=(out - 1).abs().max().item()))
+    prompt length and at T = 2048, held to FLASH_SPEED_GATE x SDPA."""
+    cases = [flash_case(dev, seed, 2, *c, dtype) for dtype in (torch.float32, torch.bfloat16)
+             for c in FLASH_CASES]
+    cases += [flash_case(dev, seed, 2, t, t, True, w, 0, torch.bfloat16, q_scale=8.0)
+              for t, w in ((512, 0), (2048, 128))]
+    ones = [ones_case(dev, seed + 1, t, w, dtype) for dtype in (torch.float32, torch.bfloat16)
+            for t, w in ((512, 0), (2048, 128))]
     bad = ([c for c in cases if not c["within_tol"] or c.get("exactly_zero") is False]
-           + [o for o in ones if o["max_abs_out_minus_1"] > 1e-4])
+           + [o for o in ones if not o["within"]])
     timings = flash_timings(seed, dev, flush, LLAMA_HEADS)
+    speed = flash_speed(timings, LLAMA_HEADS)
     main_path = timings["main_path_per_launch"]
-    emit("flash_kernels", cases=cases, v_all_ones=ones, timing=timings,
-         tol="f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3; v all ones (f32): "
-             "|out - 1| <= 1e-4; rows with no kept key exactly 0",
+    emit("flash_kernels", cases=cases, v_all_ones=ones, timing=timings, speed=speed,
+         tol="f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3; v all ones: |out - 1| <= "
+             "1e-4 (f32), 4e-3 (bf16); rows with no kept key exactly 0; bf16 kernel_ms <= "
+             f"{FLASH_SPEED_GATE} x library_ms at T=2048 and on the main path's mean",
          note="ms: CUDA events, median of 30, L2 flushed; B=1, H=32, Hkv=8, D=64, bf16, "
               "causal, q_offset 0; main_path: mean per launch over the 32 served prompt "
-              "lengths; bound: max(bytes at 3.35 TB/s, 4*D*H*kept pairs at 989 TFLOP/s); "
-              "library: scaled_dot_product_attention(is_causal=True, enable_gqa=True) on "
-              "[B, H, T, D] copies")
+              "lengths; bound: max(bytes at 3.35 TB/s, 4*D*H*kept pairs at 989 "
+              "TFLOP/s); library: scaled_dot_product_attention(is_causal=True, "
+              "enable_gqa=True) on [B, H, T, D] copies; tflops: 4*D*H*kept pairs over ms")
     if bad:
         raise AssertionError(f"flash_attention differs from its plain version: {bad}")
+    check_flash_speed(speed, "llama heads")
     return dict(**{k: main_path[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by")},
                 max_abs_err=max(c["max_abs_err"] for c in cases
                                 if c["dtype"] == "torch.bfloat16"))
+
+
+def check_flash_speed(speed: dict, where: str, keys=("over_sdpa_t2048", "over_sdpa_main_path")):
+    slow = {k: speed[k] for k in keys if speed[k] > FLASH_SPEED_GATE}
+    if slow:
+        raise AssertionError(f"B4 bf16 at {where} slower than {FLASH_SPEED_GATE}x SDPA: {slow}")
 
 
 def flash_timing(seed: int, t: int, dev, flush, heads: dict) -> dict:
@@ -1810,30 +1851,30 @@ def phase_mixtral_attention(dev, seed: int, flush: torch.Tensor) -> dict:
                                                              **TOL[dtype])),
                               kv_len_0_exactly_zero=(q_pos is not None
                                                      or bool((out[0] == 0).all()))))
-        for t in (32, 512, 2048):
-            q, k, v = flash_inputs(seed, 1, t, t, dev, dtype, heads=MIXTRAL_HEADS)
-            for window in (0, 128):
-                out = flash_attention.flash_attention(q, k, v, window=window)
-                plain = flash_attention.attention_ref(q, k, v, window=window)
-                torch.cuda.synchronize()
-                flash.append(dict(dtype=str(dtype), t=t, window=window,
-                                  max_abs_err=(out.float() - plain.float()).abs().max().item(),
-                                  within_tol=bool(torch.allclose(out.float(), plain.float(),
-                                                                 **TOL[dtype]))))
+        flash += [flash_case(dev, seed, 1, t, t, True, window, 0, dtype, MIXTRAL_HEADS)
+                  for t in (32, 512, 2048) for window in (0, 128)]
+    flash += [flash_case(dev, seed, 1, 2048, 2048, True, 0, 0, torch.bfloat16, MIXTRAL_HEADS,
+                         q_scale=8.0)]
+    flash_ones = [ones_case(dev, seed + 1, 2048, 128, dtype, MIXTRAL_HEADS)
+                  for dtype in (torch.float32, torch.bfloat16)]
     served = rng.integers(32, 513, size=16) + rng.integers(0, 33, size=16)
     timings = {"paged_main_path": time_kernels(dev, seed, 64, served, flush, d),
                "flash_attention": flash_timings(seed, dev, flush, MIXTRAL_HEADS)}
+    speed = flash_speed(timings["flash_attention"], MIXTRAL_HEADS)
     emit("mixtral_attention_kernels", paged=paged, decode_attention=dense,
-         flash_attention=flash, timing=timings,
+         flash_attention=flash, flash_v_all_ones=flash_ones, timing=timings, flash_speed=speed,
          tol="TOL (f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3); kv_len 0 rows exactly 0 "
-             "without q_pos; B2 and B3 also with the model's q_pos, idle rows 2-4",
+             "without q_pos; B2 and B3 also with the model's q_pos, idle rows 2-4; B4 v all "
+             f"ones as in flash_kernels; B4 bf16 <= {FLASH_SPEED_GATE}x SDPA at T=2048",
          note="H=32, Hkv=8, D=128 (mixtral-8x7b FULL); ms: CUDA events, median of 30, L2 "
               "flushed, bf16; paged_main_path: B=16, page 16, kv_len 32..544 in 64-page "
-              "tables, q_pos = kv_len - 1; flash_attention: B=1, causal, the 32 served prompt lengths and T=2048")
+              "tables, q_pos = kv_len - 1; flash_attention: B=1, causal, the 32 served "
+              "prompt lengths and T=2048")
     bad = ([c for c in dense if not c["within_tol"] or not c["kv_len_0_exactly_zero"]]
-           + [c for c in flash if not c["within_tol"]])
+           + [c for c in flash if not c["within_tol"]] + [o for o in flash_ones if not o["within"]])
     if bad:
         raise AssertionError(f"attention kernels at mixtral's heads differ: {bad}")
+    check_flash_speed(speed, "mixtral heads", keys=("over_sdpa_t2048",))
     return timings
 
 

@@ -5,17 +5,22 @@ Dispatch follows the tensors' device.  CPU tensors go to the plain
 PyTorch version in ``ref.py``; CUDA tensors launch the hand-written
 kernel in ``csrc/flash_attention.cu`` (built by ``kernels/build.py``) or
 raise.  There is no fallback: a kernel that fails to build or launch
-raises, and nothing is copied to the CPU.
+raises, and nothing is copied to the CPU.  The kernel has two
+instantiations: float32 runs on the CUDA cores (f32 FMAs, as TF32 would
+miss f32's tolerance), bfloat16 on the tensor cores (``mma.sync`` with
+bf16 operands and f32 sums; the weights go to the value product as two
+bf16 terms, about 16 bits, since rounded to bf16 alone they move a short
+row's output past the bfloat16 tolerance).
 
 Validation keeps the reference wrapper's
 (src/repro/kernels/flash_attention/ops.py:32-37): q, k and v are 4-D, k
 and v share a shape, and the query heads are a multiple of the KV heads.
 The port adds: batch and head size shared by q and k, and on CUDA one
 dtype (float32 or bfloat16), contiguous operands and a head size the
-kernel is built for.  The Pallas kernel takes its tile sizes as
+kernel is built for, and for bfloat16 16-byte aligned operands (its
+copies move 16 bytes).  The Pallas kernel takes its tile sizes as
 arguments and asserts that T and S are multiples of them
-(kernel.py:114-115); this kernel picks its own tiles and masks the
-ragged edges, so the wrapper takes no tile sizes.
+(kernel.py:114-115); this kernel masks the ragged edges.
 
 ``LAUNCHES`` counts kernel launches.  Only a launch on the card counts;
 the plain CPU path does not.
@@ -66,6 +71,8 @@ def _check_cuda_operands(q, k, v) -> None:
         raise ValueError("q, k and v must be contiguous")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"head size {q.shape[3]} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bfloat16 q, k and v must be 16-byte aligned")
 
 
 def flash_attention(

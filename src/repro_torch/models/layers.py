@@ -153,12 +153,16 @@ def attention(
                               # or linear {"k","v": [B, S, Hkv, hd], "pos"}
     use_kernels: bool = True,
     fresh_prefill: bool = False,
+    decode_idx: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """Causal GQA self-attention against a KV cache.
 
     ``fresh_prefill`` states that every row starts at position 0 on an
     empty cache (``Model.prefill``), so the chunk's own keys are all it
     may attend: the flash kernel's causal mask at ``q_offset=0``.
+    ``decode_idx`` is ``decode_indices(cache)`` on a decode step with
+    kernels (one token, ``use_kernels``), which the forward pass takes
+    once for all its layers.
 
     Returns (output [B, Tq, D], cache with the chunk written and ``pos``
     advanced by Tq)."""
@@ -176,7 +180,7 @@ def attention(
 
     if "page_table" in cache:
         out, new_cache = _paged_attention(q, k, v, positions, window, cache,
-                                          use_kernels, flash)
+                                          use_kernels, flash, decode_idx)
     else:
         # Linear cache: write the chunk at each row's own position (ragged
         # under continuous batching).  The start is clamped so the chunk
@@ -191,11 +195,10 @@ def attention(
         if flash:
             out = flash_attention(q, k, v, causal=True, window=window)
         elif tq == 1 and use_kernels:
-            # kv_len = cache pos + 1 is the valid prefix; q_pos masks
-            # causally and sets the window, as _dense_attention does (an
-            # idle slot's position need not be its cache position)
-            out = decode_attention(q[:, 0], cache_k, cache_v, cache_pos + 1, window=window,
-                                   q_pos=positions[:, 0])
+            # q_pos masks causally and sets the window, as _dense_attention
+            # does (an idle slot's position need not be its cache position)
+            out = decode_attention(q[:, 0], cache_k, cache_v, decode_idx["kv_len"],
+                                   window=window, q_pos=positions[:, 0])
             out = out[:, None].to(v.dtype)
         else:
             kv_pos = torch.arange(s, dtype=positions.dtype,
@@ -243,6 +246,7 @@ def _paged_attention(
     cache: Params,
     use_kernels: bool,
     flash: bool,
+    decode_idx: Optional[Params],
 ) -> Tuple[torch.Tensor, Params]:
     """Attention against a paged KV cache.
 
@@ -263,9 +267,10 @@ def _paged_attention(
     kv_len = cache_pos + tq
 
     if tq == 1 and use_kernels:
-        paged_kv_append(k[:, 0], v[:, 0], k_pages, v_pages, page_table, cache_pos)
+        paged_kv_append(k[:, 0], v[:, 0], k_pages, v_pages, decode_idx["write_table"],
+                        decode_idx["write_pos"])
         out = paged_decode_attention(
-            q[:, 0], k_pages, v_pages, page_table, kv_len, window=window,
+            q[:, 0], k_pages, v_pages, page_table, decode_idx["kv_len"], window=window,
             q_pos=positions[:, 0],
         )
         out = out[:, None].to(v.dtype)  # [B, 1, H, hd]
@@ -300,6 +305,27 @@ def _paged_attention(
         "pos": kv_len,
     }
     return out, new_cache
+
+
+def decode_indices(cache: Params) -> Params:
+    """What a decode step's kernels index with, from one attention layer's
+    linear or paged cache.  Every attention layer of a model holds the same
+    positions and page table, so a forward pass takes these once.
+
+    An idle batcher slot's position runs on past its cache, as the
+    reference's does.  There every row is valid (``kv_len`` is clamped to
+    the cache's rows), and the reference's scatter puts a paged slot's row
+    in scratch page 0 at ``pos % page``: B1 gets a zeroed table row
+    (``write_table``) and ``pos`` modulo the row's length (``write_pos``)
+    for such a slot."""
+    pos = cache["pos"]
+    if "page_table" not in cache:
+        return {"kv_len": (pos + 1).clamp(max=cache["k"].shape[1])}
+    table = cache["page_table"]
+    rows = table.shape[1] * cache["k_pages"].shape[1]
+    return {"kv_len": (pos + 1).clamp(max=rows),
+            "write_table": table * (pos < rows)[:, None],
+            "write_pos": pos % rows}
 
 
 def init_attention_cache(
@@ -374,8 +400,17 @@ def embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Logits in f32.  The product runs in the working dtype: casting the
-    embedding table up would copy the largest matrix of the model on
-    every call."""
+    """Logits as f32 sums of working-dtype products, as the reference's
+    ``preferred_element_type=f32`` einsum takes them: a bf16 logit is
+    never rounded to bf16.  On the card the bf16 product accumulates and
+    writes f32 (``out_dtype``) without copying the table up, which would
+    copy the largest matrix of the model on every call.  The CPU has no
+    such kernel, so there the operands are widened; products of bf16
+    values are exact in f32."""
     w = params["tok"].t() if cfg.tie_embeddings else params["unembed"]
-    return (x @ w).float()
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cpu":
+        return x.float() @ w.float()
+    logits = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return logits.reshape(*x.shape[:-1], w.shape[-1])

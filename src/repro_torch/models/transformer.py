@@ -72,6 +72,7 @@ def apply_block(
     cache: Params,
     use_kernels: bool,
     fresh_prefill: bool = False,
+    decode_idx: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
     h = L.rms_norm(x, params["norm_attn"], cfg.norm_eps)
     if spec.is_mamba:
@@ -79,7 +80,7 @@ def apply_block(
         new_cache = {"mamba": mc}
     else:
         y, new_cache = L.attention(params["attn"], h, positions, cfg, spec, cache,
-                                   use_kernels, fresh_prefill)
+                                   use_kernels, fresh_prefill, decode_idx)
     x = x + y
     if spec.ffn != FFNKind.NONE:
         h = L.rms_norm(x, params["norm_ffn"], cfg.norm_eps)
@@ -139,10 +140,14 @@ def forward(
     x = L.embed(params["embed"], tokens, cfg).to(compute_dtype)
     positions = (start_pos.to(torch.int32)[:, None]
                  + torch.arange(t, dtype=torch.int32, device=tokens.device)[None])
+    # a decode step's kernel indices, the same in every attention layer
+    attn_cache = next((c for c in cache if "pos" in c), None)
+    decode_idx = (L.decode_indices(attn_cache)
+                  if t == 1 and use_kernels and attn_cache is not None else None)
     new_cache = []
     for i, (layer_params, layer_cache) in enumerate(zip(params["layers"], cache)):
         x, nc = apply_block(layer_params, cfg.layer_spec(i), x, positions, cfg,
-                            layer_cache, use_kernels, fresh_prefill)
+                            layer_cache, use_kernels, fresh_prefill, decode_idx)
         new_cache.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_positions == "last":

@@ -124,8 +124,8 @@ class ContinuousBatcher:
         # attention layer): an idle slot still rides the decode step, so
         # its device position advances every tick.
         self._cache_pos = np.zeros((slots,), dtype=np.int64)
-        # rows of the cache a position may index: the page-table row, or
-        # the linear cache's max_len
+        # rows of the cache an active slot's position may index: the
+        # page-table row, or the linear cache's max_len
         self._pos_cap = (paged.pages_per_slot(max_len) * paged.page_size
                          if paged is not None else max_len)
         # requests that could not be admitted for lack of pages, or were
@@ -214,21 +214,25 @@ class ContinuousBatcher:
         return next_tok
 
     def _release_slot(self, slot: int) -> None:
-        """Free a slot's pages (paged mode) and reset its cache position."""
-        if self.paged is not None:
-            if self.slot_pages[slot]:
-                self.page_pool.free(self.slot_pages[slot])
-                self.slot_pages[slot] = []
-            self._page_table[slot] = 0  # back to the scratch page
-            self._table_dirty = True
+        """Paged mode: free a slot's pages and reset its cache position.
+        A dense slot keeps its position running, as the reference's
+        ``_release_pages`` leaves it: past ``max_len`` the linear cache
+        writes at its last row and every row is valid, so an idle slot's
+        token attends to what the reference's does."""
+        if self.paged is None:
+            return
+        if self.slot_pages[slot]:
+            self.page_pool.free(self.slot_pages[slot])
+            self.slot_pages[slot] = []
+        self._page_table[slot] = 0  # back to the scratch page
+        self._table_dirty = True
         self._reset_slot_pos(slot)
 
     def _reset_slot_pos(self, slot: int) -> None:
-        """Zero the device-cache decode position of a freed slot in every
-        attention layer (Mamba layers keep no position).  An empty slot
-        still rides the decode step (shapes are static), so its cache
-        ``pos`` advances every tick; resetting keeps it inside its table
-        row, or its linear cache, between admissions."""
+        """Zero the device-cache decode position of a freed paged slot in
+        every attention layer, as the reference's ``_release_pages``
+        does.  An empty slot still rides the decode step (shapes are
+        static), so its cache ``pos`` advances every tick from there."""
         for layer in self.cache:
             if "pos" in layer:
                 layer["pos"][slot] = 0
@@ -245,8 +249,10 @@ class ContinuousBatcher:
 
     def _check_kernel_indices(self) -> None:
         """Host range check of what the decode kernels will index with,
-        once per tick.  An idle slot whose device position is about to
-        leave its table row, or its linear cache, is reset first."""
+        once per tick: an active slot past its cache raises.  An idle
+        slot's position runs on past its table row or linear cache, as
+        the reference's does; the attention layer maps what it writes
+        and reads back into the cache."""
         cap = self._pos_cap
         for slot in np.flatnonzero(self._cache_pos >= cap):
             if self.active[slot] is not None:
@@ -254,7 +260,6 @@ class ContinuousBatcher:
                     f"slot {slot} decodes at position {self._cache_pos[slot]} "
                     f"past its cache ({cap} rows)"
                 )
-            self._reset_slot_pos(int(slot))
         if self.paged is None:
             return
         if self._page_table.min() < 0 or self._page_table.max() >= self.paged.num_pages:

@@ -3,13 +3,21 @@ card.  Every test here needs a CUDA device and skips without one; run
 them on the GPU machine with ``pytest -m cuda tests/test_torch_cuda_kernels.py``.
 The file imports no JAX, which that machine does not have."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+
+from repro_torch.config import get_arch  # noqa: E402
 from repro_torch.kernels import flash_attention, moe_gating, ssd_scan, tcmm_assign  # noqa: E402
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.layers import unembed  # noqa: E402
+from repro_torch.serving import ContinuousBatcher, PagedSpec, Request  # noqa: E402
 
 
 def decode_case(seed, b, hkv, g, d, page, n_pages, kv_len):
@@ -175,8 +183,9 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, t, s, causal, window, q
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,window", [(32, 0), (512, 0), (512, 128), (300, 16)])
 def test_cuda_flash_attention_at_mixtral_heads_matches_plain(cuda, dtype, t, window):
-    """B4 at mixtral-8x7b's heads (32 over 8, D 128: the instantiation that
-    takes 115,456 bytes of shared memory), B = 1, causal, T = S."""
+    """B4 at mixtral-8x7b's heads (32 over 8, D 128: the instantiations
+    that take 115,456 (f32) and 87,040 (bf16) bytes of shared memory),
+    B = 1, causal, T = S."""
     rng = np.random.default_rng(15)
     q = rng.standard_normal((1, t, 32, 128)).astype(np.float32)
     k = rng.standard_normal((1, t, 8, 128)).astype(np.float32)
@@ -210,13 +219,19 @@ def test_cuda_decode_attention_at_mixtral_heads_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_rows_sum_to_one(cuda):
+@pytest.mark.parametrize("dtype,d,window,limit", [(torch.float32, 64, 0, 1e-4),
+                                                  (torch.bfloat16, 64, 64, 4e-3),
+                                                  (torch.bfloat16, 128, 64, 4e-3)])
+def test_cuda_flash_attention_rows_sum_to_one(cuda, dtype, d, window, limit):
+    """v all ones: every row is 1 up to f32 sums, and in bf16 the output's
+    rounding to 1's lower neighbour (2**-8 below it) at most."""
     rng = np.random.default_rng(14)
-    q = torch.from_numpy(rng.standard_normal((1, 300, 32, 64)).astype(np.float32)).to(cuda)
-    k = torch.from_numpy(rng.standard_normal((1, 300, 8, 64)).astype(np.float32)).to(cuda)
-    out = flash_attention.flash_attention(q, k, torch.ones_like(k))
+    q = torch.from_numpy(rng.standard_normal((1, 300, 32, d)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(rng.standard_normal((1, 300, 8, d)).astype(np.float32)).to(cuda)
+    q, k = q.to(dtype), k.to(dtype)
+    out = flash_attention.flash_attention(q, k, torch.ones_like(k), window=window)
     torch.cuda.synchronize()
-    assert (out - 1).abs().max().item() <= 1e-4
+    assert (out.float() - 1).abs().max().item() <= limit
 
 
 @pytest.mark.cuda
@@ -231,7 +246,145 @@ def test_cuda_flash_attention_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="head size"):
         flash_attention.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                                         k[..., :48].contiguous())
+    qb, kb = q.bfloat16(), k.bfloat16()
+    shifted = torch.zeros(qb.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off
+        flash_attention.flash_attention(shifted, kb, kb)
     assert flash_attention.LAUNCHES["flash_attention"] == before
+
+
+# B4's bfloat16 instantiation (tensor cores) at every head size, with one,
+# two (the SMOKE configs), four (llama3.2-1b and mixtral-8x7b FULL) and
+# eight query heads a KV head, ragged lengths (none a multiple of 16 or
+# 64), a chunk at an offset, a window, a chunk whose every row is masked
+# (exactly 0) and a non-causal case.
+BF16_FLASH_CASES = [  # (t, s, causal, window, q_offset)
+    (1, 1, True, 0, 0), (17, 17, True, 0, 0), (200, 200, True, 0, 0), (513, 513, True, 0, 0),
+    (200, 513, True, 0, 313), (17, 200, True, 64, 183), (513, 513, True, 100, 0),
+    (16, 64, True, 32, 128), (513, 200, False, 0, 0)]
+
+
+def flash_case(seed, t, s, hkv, g, d, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, t, hkv * g, d)).astype(np.float32) * q_scale
+    k = rng.standard_normal((1, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((1, s, hkv, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("t,s,causal,window,q_offset", BF16_FLASH_CASES)
+def test_cuda_flash_attention_bf16_tensor_cores_match_plain(cuda, d, g, t, s, causal, window,
+                                                            q_offset):
+    tq, tk, tv = [x.to(cuda).to(torch.bfloat16) for x in as_torch(*flash_case(21, t, s, 2, g, d))]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    plain = flash_attention.attention_ref(tq, tk, tv, **kw)
+    before = flash_attention.LAUNCHES["flash_attention"]
+    out = flash_attention.flash_attention(tq, tk, tv, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), plain.float(), **CUDA_TOL[torch.bfloat16])
+    if (t, s, window, q_offset) == (16, 64, 32, 128):
+        assert torch.all(out == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [0, 100])
+def test_cuda_flash_attention_bf16_large_scores(cuda, d, window):
+    """q scaled by 8: scores of about 8 sqrt(D) / sqrt(D) * N(0, 1) spread
+    over tens of units, so the running max moves often and most weights
+    underflow; still within the bf16 tolerance."""
+    q, k, v = flash_case(22, 513, 513, 8, 4, d, q_scale=8.0)
+    tq, tk, tv = [x.to(cuda).to(torch.bfloat16) for x in as_torch(q, k, v)]
+    out = flash_attention.flash_attention(tq, tk, tv, window=window)
+    plain = flash_attention.attention_ref(tq, tk, tv, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain.float(), **CUDA_TOL[torch.bfloat16])
+
+
+# C1 on the card: idle slots' cache positions run on as the reference's.
+# The CPU tests hold the port's tokens to the reference's on these inputs
+# (tests/test_torch_serving.py); here the card's kernel path must serve the
+# same tokens as the CPU's plain path on one seeded set of weights.
+C1_GROUPS = {
+    "dense": (dict(slots=2), [[([7, 8, 9], 12), ([4, 5, 6, 1, 2], 6)],
+                              [([3, 1], 12)], [([2, 2, 5], 12)], [([9], 12)]]),
+    "paged": (dict(slots=3, paged=PagedSpec(num_pages=13, page_size=4)),
+              [[([31, 143, 255, 248, 59], 12), ([383, 492, 47, 371, 150], 5),
+                ([141, 371, 82, 165, 496], 4)],
+               [([149, 59], 12)], [([319, 233], 12)], [([185, 313, 395], 12)]]),
+}
+
+
+def serve_in_turn(device, kind):
+    """mixtral SMOKE at f32 and capacity factor 1.25, max_len 16: each
+    group served to the end before the next.  Returns the outputs and the
+    slots' final cache positions."""
+    kw, groups = C1_GROUPS[kind]
+    cfg = get_arch("mixtral-8x7b", smoke=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
+    model = build_model(cfg, compute_dtype=torch.float32, device=device)
+    params = model.init(torch.Generator().manual_seed(0))
+    b = ContinuousBatcher(model, params, max_len=16, **kw)
+    outputs = []
+    for group in groups:
+        reqs = [Request(prompt=list(p), max_new_tokens=n) for p, n in group]
+        for r in reqs:
+            b.submit(r)
+        b.run_until_drained()
+        outputs += [r.output for r in reqs]
+    return outputs, b._cache_pos.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_cuda_idle_slot_positions_run_on_as_on_the_cpu(cuda, kind):
+    ops.reset_launches()
+    card = serve_in_turn(cuda, kind)
+    decode = "decode_attention" if kind == "dense" else "paged_decode_attention"
+    assert ops.LAUNCHES[decode] > 0
+    assert card == serve_in_turn("cpu", kind)
+    assert min(card[1][1:]) > 16, "the idle slots ran past their cache"
+
+
+class OutputDtypes(TorchDispatchMode):
+    """Records the dtype and shape of every tensor an op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        result = func(*args, **(kwargs or {}))
+        for t in result if isinstance(result, (tuple, list)) else (result,):
+            if isinstance(t, torch.Tensor):
+                self.seen.append((t.dtype, tuple(t.shape)))
+        return result
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_unembed_sums_in_f32(cuda):
+    """C2 on the card: llama3.2-1b SMOKE's tied unembed on bf16 operands
+    (the CPU test's draws) gives f32 logits with no bf16 logits tensor on
+    the way, equal to the f32 product of the widened operands to f32
+    accumulation (64 exact products: atol 1e-5, as on the CPU)."""
+    cfg = get_arch("llama3.2-1b", smoke=True)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(20):
+        x = torch.randn((1, 16, 64), generator=gen, dtype=torch.bfloat16)
+        tok = 0.02 * torch.randn((512, 64), generator=gen, dtype=torch.bfloat16)
+        with OutputDtypes() as rec:
+            got = unembed({"tok": tok.to(cuda)}, x.to(cuda), cfg)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (1, 16, 512)
+        # no bf16 tensor of 16 rows x 512 logits (the table's views are 64 x 512)
+        assert not [s for dt, s in rec.seen
+                    if dt == torch.bfloat16 and s[-1] == 512 and np.prod(s[:-1]) == 16]
+        torch.testing.assert_close(got.cpu(), x.float() @ tok.float().t(), rtol=0, atol=1e-5)
 
 
 # The SSD kernel and its plain version both compute in f32 from the same

@@ -145,6 +145,31 @@ def test_tied_embedding_is_scaled_by_sqrt_d_model(setup):
         params["embed"]["tok"][tokens].numpy() * np.sqrt(cfg.d_model), rtol=1e-6)
 
 
+def test_bf16_unembed_sums_in_f32_as_reference():
+    """llama3.2-1b SMOKE's tied unembed (d 64, vocab 512) on bf16 operands
+    against the reference's, which takes f32 sums of the bf16 products
+    (``preferred_element_type``): bf16 x [1, 16, 64] (randn) and table
+    [512, 64] (0.02 randn), drawn in turn from one seeded generator, 20
+    times.  Both sides sum 64 exact products in f32 in their own order,
+    an error below 64 * 2**-24 of the sum of |products| (< 1 here):
+    atol 1e-5.  Logits rounded to bf16 first miss by up to about 2e-3."""
+    from repro.models.layers import unembed as jax_unembed
+    from repro_torch.models.layers import unembed
+
+    cfg, jcfg = get_arch("llama3.2-1b", smoke=True), jax_get_arch("llama3.2-1b", smoke=True)
+    assert cfg.tie_embeddings and (cfg.d_model, cfg.vocab_size) == (64, 512)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(20):
+        x = torch.randn((1, 16, 64), generator=gen, dtype=torch.bfloat16)
+        tok = 0.02 * torch.randn((512, 64), generator=gen, dtype=torch.bfloat16)
+        got = unembed({"tok": tok}, x, cfg)
+        want = jax_unembed({"tok": jnp.asarray(tok.float().numpy(), dtype=jnp.bfloat16)},
+                           jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16), jcfg)
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(got.argmax(-1).numpy(), np.asarray(want).argmax(-1))
+
+
 def test_sliding_layers_are_refused_until_the_ring_cache_is_ported():
     """The ring cache (``slot_pos``) is still unported, but no serving path
     of the reference builds one: on a linear or paged cache the window is

@@ -3,7 +3,8 @@ continuous batcher token-for-token against the reference package's on
 llama3.2-1b and mixtral-8x7b SMOKE (f32, same params, same requests),
 including more requests than slots and a pool tight enough to force
 preemption, and the dense batcher on llama3.2-1b, mixtral-8x7b and
-mamba2-370m SMOKE likewise.  Mixtral runs dropless and at capacity factor
+mamba2-370m SMOKE likewise; idle slots' cache positions tick for tick
+against the reference's.  Mixtral runs dropless and at capacity factor
 1.25 on both sides."""
 
 import dataclasses
@@ -79,6 +80,49 @@ def serve_both(models, prompts, max_new, paged=None, **kw):
     return jb, jout, tb, tout
 
 
+def jax_cache_pos(jb):
+    """The reference batcher's device cache position of every slot (the
+    same in every attention layer)."""
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jb.cache)[0]:
+        if getattr(path[-1], "key", None) == "pos":
+            pos = np.asarray(leaf)
+            return pos[0] if pos.ndim == 2 else pos  # stacked [n_periods, slots]
+    raise AssertionError("the reference cache holds no pos")
+
+
+def serve_in_turn(models, groups, paged=None, **kw):
+    """Serve each group of (prompt, max_new) requests to the end before
+    the next, through both batchers in lockstep.  Returns each side's
+    outputs in submission order and every slot's device cache position
+    after each tick, (reference, port); the port's host copy is checked
+    against its device positions every tick."""
+    (jmodel, jparams), (model, params) = models
+    jb = JaxBatcher(jmodel, jparams, paged=None if paged is None else JaxPagedSpec(**paged),
+                    **kw)
+    tb = ContinuousBatcher(model, params, paged=None if paged is None else PagedSpec(**paged),
+                           **kw)
+    jout, tout, jpos, tpos = [], [], [], []
+    for group in groups:
+        jreqs = [JaxRequest(prompt=list(p), max_new_tokens=n) for p, n in group]
+        treqs = [Request(prompt=list(p), max_new_tokens=n) for p, n in group]
+        for jr, tr in zip(jreqs, treqs):
+            jb.submit(jr)
+            tb.submit(tr)
+        while tb.occupancy() or tb.queue_depth():
+            jb.step()
+            tb.step()
+            jpos.append(jax_cache_pos(jb).tolist())
+            tpos.append(tb._cache_pos.tolist())
+            for layer in tb.cache:
+                if "pos" in layer:
+                    np.testing.assert_array_equal(layer["pos"].numpy(), tb._cache_pos)
+        assert jb.occupancy() == 0 and jb.queue_depth() == 0
+        jout += [r.output for r in jreqs]
+        tout += [r.output for r in treqs]
+    assert_drained(tb)
+    return jout, tout, jpos, tpos
+
+
 def assert_drained(b):
     assert b.occupancy() == 0 and b.queue_depth() == 0
     if b.page_pool is not None:
@@ -124,9 +168,10 @@ def test_dense_llama_batcher_matches_reference(models):
     versions here) token for token against the reference's: prompts of
     70 and 80 tokens (over 64), max_len 100 (not a multiple of 128), more
     requests than slots.  Slot 1 serves both long prompts to the end of
-    its cache, then rides idle for the rest of slot 0's request, which
-    would carry its cache position past max_len if freeing did not reset
-    it; B3's wrapper refuses such a kv_len on the CPU."""
+    its cache, then rides idle for the rest of slot 0's request, its cache
+    position running past max_len as the reference's does; the layer
+    clamps B3's kv_len to the cache, which B3's wrapper checks on the
+    CPU."""
     rng = np.random.default_rng(6)
     prompts = [rng.integers(0, 512, size=n).tolist() for n in (3, 70, 80)]
     jb, jout, tb, tout = serve_both(models, prompts, 96, slots=2, max_len=100)
@@ -138,23 +183,57 @@ def test_dense_llama_batcher_matches_reference(models):
 
 def test_dense_idle_slot_position_stays_inside_the_cache(models):
     """Requests one after another: slot 0 decodes, slot 1 never serves.
-    Its cache position climbs to max_len and is reset there, before B3
-    would read a row past the cache."""
-    _, (model, params) = models
-    b = ContinuousBatcher(model, params, slots=2, max_len=100)
-    reqs = [Request(prompt=[3 + i, 5], max_new_tokens=90) for i in range(2)]
-    seen = []
-    for r in reqs:
-        b.submit(r)
-        while b.occupancy() or b.queue_depth():
-            b.step()
-            for layer in b.cache:  # the host copy tracks the device positions
-                np.testing.assert_array_equal(layer["pos"].numpy(), b._cache_pos)
-            seen.append(int(b._cache_pos[1]))
-    assert max(seen) == 100 and len(seen) == 2 * 89
-    assert seen[-1] == len(seen) - 100, "reset once, at max_len"
-    assert all(len(r.output) == 90 for r in reqs)
-    assert_drained(b)
+    Its cache position runs on past max_len, tick for tick as the
+    reference's (neither batcher resets a dense slot), while what B3
+    reads stays inside the cache: the layer clamps its kv_len, and B3's
+    CPU wrapper refuses one past the cache.  The name dates from when the
+    batcher reset the position at the cache's end; "inside" now holds
+    for what B3 reads, not for the position."""
+    prompts = [([3 + i, 5], 90) for i in range(2)]
+    jout, tout, jpos, tpos = serve_in_turn(models, [[p] for p in prompts], slots=2,
+                                           max_len=100)
+    assert tpos == jpos
+    seen = [pos[1] for pos in tpos]
+    assert len(seen) == 2 * 89 and max(seen) > 100
+    assert seen == list(range(1, len(seen) + 1)), "never reset"
+    assert tout == jout and all(len(o) == 90 for o in tout)
+
+
+C1_TOKENS = [124, 259, 4, 215, 67, 431, 457, 230, 203, 487, 424, 40]
+
+
+def test_dense_mixtral_idle_slot_position_runs_on_as_reference(mixtral_models):
+    """The smallest input on which a dense idle slot's position mattered:
+    mixtral SMOKE, slots=2, max_len=16, [7, 8, 9] for 12 tokens beside
+    [4, 5, 6, 1, 2] for 6, then three requests one at a time, which carry
+    idle slot 1 past max_len.  At capacity 1.25 the idle slot's token
+    takes expert capacity from the busy one; resetting its position on
+    release changed the first request's tokens from the 8th on."""
+    (jmodel, _), (model, _) = mixtral_models
+    groups = [[([7, 8, 9], 12), ([4, 5, 6, 1, 2], 6)],
+              [([3, 1], 12)], [([2, 2, 5], 12)], [([9], 12)]]
+    jout, tout, jpos, tpos = serve_in_turn(mixtral_models, groups, slots=2, max_len=16)
+    assert tout == jout
+    assert tpos == jpos and max(pos[1] for pos in tpos) > 16
+    if model.cfg.moe.capacity_factor == 1.25:
+        assert tout[0] == C1_TOKENS
+
+
+def test_paged_mixtral_idle_slots_past_their_table_as_reference(mixtral_models):
+    """Paged, 3 slots of 16 rows: two short requests leave slots 1 and 2
+    idle at stale positions, then three requests one at a time carry both
+    past the end of their table rows.  There the reference writes each
+    idle row into scratch page 0 at pos % page and attends every row of
+    the table; resetting the positions at the row's end changed the
+    last request's tokens at capacity 1.25."""
+    groups = [[([31, 143, 255, 248, 59], 12), ([383, 492, 47, 371, 150], 5),
+               ([141, 371, 82, 165, 496], 4)],
+              [([149, 59], 12)], [([319, 233], 12)], [([185, 313, 395], 12)]]
+    jout, tout, jpos, tpos = serve_in_turn(mixtral_models, groups,
+                                           paged=dict(num_pages=13, page_size=4),
+                                           slots=3, max_len=16)
+    assert tout == jout
+    assert tpos == jpos and min(max(pos[1] for pos in tpos), max(pos[2] for pos in tpos)) > 16
 
 
 def test_dense_batcher_serves_mamba2_as_reference(mamba_models):
@@ -250,27 +329,23 @@ def test_eos_frees_the_slot_early_as_in_reference(models):
 
 
 def test_idle_slot_position_stays_inside_its_table(models):
-    """An idle slot rides every decode tick; its device position is reset
-    before it would leave the page table, so the CPU range checks of the
-    kernel wrappers never trip however long a neighbour decodes."""
-    _, (model, params) = models
-    b = ContinuousBatcher(model, params, slots=2, max_len=16,
-                          paged=PagedSpec(num_pages=9, page_size=4))
+    """An idle slot rides every decode tick; its device position runs on
+    past its table row, tick for tick as the reference's, while what the
+    kernels index stays inside the table: the layer sends the row to
+    scratch page 0 and clamps kv_len, so the CPU range checks of the
+    kernel wrappers never trip however long a neighbour decodes.  The
+    name dates from when the batcher reset the position at the row's
+    end; "inside" now holds for what the kernels index."""
     cap = 16  # 4 table entries x 4 rows
-    reqs = [Request(prompt=[3 + i], max_new_tokens=14) for i in range(3)]
-    seen = []
-    for r in reqs:  # one after another: slot 0 decodes, slot 1 stays idle
-        b.submit(r)
-        while b.occupancy() or b.queue_depth():
-            b.step()
-            seen.append(int(b._cache_pos[1]))
-            assert int(b._cache_pos.max()) <= cap
-            for layer in b.cache:  # the host copy tracks the device positions
-                np.testing.assert_array_equal(layer["pos"].numpy(), b._cache_pos)
-    assert len(seen) == 39 and max(seen) == cap
-    assert seen[-1] < len(seen), "the idle slot's position was reset"
-    assert all(len(r.output) == 14 for r in reqs)
-    assert_drained(b)
+    jout, tout, jpos, tpos = serve_in_turn(
+        models, [[([3 + i], 14)] for i in range(3)],
+        paged=dict(num_pages=9, page_size=4), slots=2, max_len=16)
+    assert tpos == jpos
+    seen = [pos[1] for pos in tpos]  # slot 0 decodes, slot 1 stays idle
+    assert len(seen) == 39 and max(seen) > cap
+    assert seen == list(range(1, len(seen) + 1)), "never reset"
+    assert max(pos[0] for pos in tpos) <= cap
+    assert tout == jout and all(len(o) == 14 for o in tout)
 
 
 def test_invalid_and_oversize_requests_fail_fast(models):
