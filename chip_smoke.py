@@ -207,6 +207,10 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # 16 bits).  That difference, carried through 16 layers, read 0.086 (max)
 # and 0.0157 (RMS) of the RMS with seed 0; the limits are about 2x.
 LOGIT_TOL = dict(max_abs=0.2, rms=0.03)
+# B2 and B3 bf16 on the main path (D = 64, and B2 at D = 128) may take at
+# most the time of one SDPA call computing the same function, read in the
+# same run: no slower than the library.
+DECODE_SPEED_GATE = 1.0
 KERNELS = {
     "paged_kv_append": dict(
         source="src/repro_torch/kernels/decode_attention/csrc/paged_kv_append.cu",
@@ -421,13 +425,13 @@ def time_kernels(dev, seed: int, n_pages: int, kv_len: np.ndarray, flush, d: int
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows["paged_decode_attention"] = dict(
+    rows["paged_decode_attention"] = with_ratios(dict(
         kernel_ms=time_ms(lambda: ops.paged_decode_attention(q, kp, vp, table, lens, q_pos=qp),
                           flush),
         plain_ms=time_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp, table, lens,
                                                                 q_pos=qp), flush),
         library_ms=time_ms(lambda: sdpa(q4, kd, vd, attn_mask=mask), flush),
-        bound_ms=bnd, bound_by=by, bytes=int(n_bytes))
+        bound_ms=bnd, bound_by=by, bytes=int(n_bytes)))
     del kd, vd
 
     k_new, v_new, kp, vp, table, pos = append_inputs(dtype, seed + 1, dev, n_pages, kv_len, d)
@@ -450,6 +454,20 @@ def time_kernels(dev, seed: int, n_pages: int, kv_len: np.ndarray, flush, d: int
     return rows
 
 
+def with_ratios(row: dict) -> dict:
+    """A decode timing row with over_sdpa (kernel over library time, the
+    speed gate's reading) and bound_over_kernel (the share of the bound
+    the kernel reaches)."""
+    return dict(row, over_sdpa=row["kernel_ms"] / row["library_ms"],
+                bound_over_kernel=row["bound_ms"] / row["kernel_ms"])
+
+
+def check_decode_speed(name: str, row: dict, where: str) -> None:
+    if row["over_sdpa"] > DECODE_SPEED_GATE:
+        raise AssertionError(f"{name} bf16 at {where} slower than {DECODE_SPEED_GATE}x SDPA: "
+                             f"{row['kernel_ms']} ms against {row['library_ms']} ms")
+
+
 def phase_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
     rng = np.random.default_rng(seed)
     # ragged kv_len in 0..2048: one empty slot, one full (128 pages of 16)
@@ -462,10 +480,13 @@ def phase_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
     timings = {"kv_len_0_2048": time_kernels(dev, seed, 128, wide, flush),
                "main_path": time_kernels(dev, seed, 64, served, flush)}
     emit("kernels", cases=cases, timings=timings,
+         gate=f"B2 bf16 kernel_ms <= {DECODE_SPEED_GATE} x library_ms on the main path",
          note="bf16 times in ms (CUDA events, median of 30, L2 flushed) at B=16 Hkv=8 G=4 "
               "D=64 page=16, B2 at the main path's lengths with q_pos = kv_len - 1; "
-              "library: SDPA over the pre-gathered dense view / two index_copy_ calls")
+              "library: SDPA over the pre-gathered dense view / two index_copy_ calls; "
+              "over_sdpa = kernel_ms / library_ms, bound_over_kernel = bound_ms / kernel_ms")
     rows = timings["main_path"]
+    check_decode_speed("B2", rows["paged_decode_attention"], "D=64, the main path")
     for name in LLAMA_KERNELS:
         rows[name]["max_abs_err"] = max(c["max_abs_err"] for c in cases
                                         if c["kernel"] == name and c["dtype"] == "torch.bfloat16")
@@ -675,6 +696,7 @@ def phase_dense_decode_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
                     case["max_abs_diff_vs_paged_b2"] = (out.float() - paged.float()).abs().max().item()
                     case["within_tol_vs_paged_b2"] = bool(torch.allclose(
                         out.float(), paged.float(), **TOL[dtype]))
+                    case["bit_equal_to_paged_b2"] = bool(torch.equal(out, paged))  # a reading
                 cases.append(case)
     bad = [c for c in cases if not c["within_tol"] or not c["kv_len_0_exactly_zero"]
            or c.get("within_tol_vs_paged_b2") is False]
@@ -682,8 +704,33 @@ def phase_dense_decode_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
     # timing: the serving phases' lengths (prompts of 32..512 plus up to 32
     # new tokens) in a 1024-row cache, bf16
     served = rng.integers(32, 513, size=16) + rng.integers(0, 33, size=16)
-    q, kc, vc, lens = dense_decode_inputs(torch.bfloat16, seed + 1, dev, 1024, served)
-    qp = lens - 1  # busy slots, as the model passes them
+    row = time_dense_decode(dev, seed, served, flush)
+    emit("dense_decode_kernels", cases=cases, timing={"main_path": row},
+         tol="TOL (f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3), against the plain "
+             "version and against B2 on a paged copy; kv_len 0 rows exactly 0 without "
+             "q_pos; with the model's q_pos, idle rows 2-4 (model_q_pos); "
+             f"bf16 kernel_ms <= {DECODE_SPEED_GATE} x library_ms on the main path",
+         note="ms: CUDA events, median of 30, L2 flushed; B=16, S=1024, H=32, Hkv=8, D=64, "
+              "bf16, kv_len 32..544, q_pos = kv_len - 1; bound: bytes of the rows below kv_len, q and out at "
+              "3.35 TB/s; library: scaled_dot_product_attention with a boolean mask from "
+              "kv_len and enable_gqa=True on [B, Hkv, S, D] copies; bit_equal_to_paged_b2 "
+              "is a reading")
+    if bad:
+        raise AssertionError(f"decode_attention differs from its plain version or B2: {bad}")
+    check_decode_speed("B3", row, "D=64, the main path")
+    return dict(**{k: row[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")},
+                max_abs_err=max(c["max_abs_err"] for c in cases
+                                if c["dtype"] == "torch.bfloat16"))
+
+
+def time_dense_decode(dev, seed: int, served: np.ndarray, flush,
+                      heads: dict = LLAMA_HEADS) -> dict:
+    """bf16 times of B3, its plain version and masked SDPA at the served
+    lengths in a 1024-row cache, q_pos = kv_len - 1 (busy slots, as the
+    model passes them), with the bound from these inputs."""
+    q, kc, vc, lens = dense_decode_inputs(torch.bfloat16, seed + 1, dev, 1024, served, heads)
+    qp = lens - 1
     b, h, d = q.shape
     hkv = kc.shape[2]
     rows = served.astype(np.int64).sum()
@@ -692,25 +739,11 @@ def phase_dense_decode_kernels(dev, seed: int, flush: torch.Tensor) -> dict:
     q4 = q[:, :, None, :]
     kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()  # SDPA's layout
     mask = (torch.arange(1024, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    row = dict(
+    return with_ratios(dict(
         kernel_ms=time_ms(lambda: ops.decode_attention(q, kc, vc, lens, q_pos=qp), flush),
         plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, lens, q_pos=qp), flush),
         library_ms=time_ms(lambda: SDPA(q4, kt, vt, attn_mask=mask, enable_gqa=True), flush),
-        bound_ms=bnd, bound_by=by, bytes=int(n_bytes))
-    emit("dense_decode_kernels", cases=cases, timing={"main_path": row},
-         tol="TOL (f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3), against the plain "
-             "version and against B2 on a paged copy; kv_len 0 rows exactly 0 without "
-             "q_pos; with the model's q_pos, idle rows 2-4 (model_q_pos)",
-         note="ms: CUDA events, median of 30, L2 flushed; B=16, S=1024, H=32, Hkv=8, D=64, "
-              "bf16, kv_len 32..544, q_pos = kv_len - 1; bound: bytes of the rows below kv_len, q and out at "
-              "3.35 TB/s; library: scaled_dot_product_attention with a boolean mask from "
-              "kv_len and enable_gqa=True on [B, Hkv, S, D] copies")
-    if bad:
-        raise AssertionError(f"decode_attention differs from its plain version or B2: {bad}")
-    return dict(**{k: row[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                                       "bound_by")},
-                max_abs_err=max(c["max_abs_err"] for c in cases
-                                if c["dtype"] == "torch.bfloat16"))
+        bound_ms=bnd, bound_by=by, bytes=int(n_bytes)))
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -1059,17 +1092,27 @@ def profile_serving(batcher, reqs) -> dict:
     for r in reqs:
         batcher.submit(r)
     torch.cuda.synchronize()
+    before = read_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         batcher.run_until_drained()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    return dict(ticks=batcher.steps, **device_times(prof, wall))
+    return dict(ticks=batcher.steps, **device_times(prof, wall, launches_since(before)))
 
 
-def device_times(prof, wall: float) -> dict:
-    """Device time of a profiled run, by kernel and in all."""
+def launches_since(before: dict) -> dict:
+    return {name: n - before[name] for name, n in read_launches().items()}
+
+
+def device_times(prof, wall: float, launches: dict) -> dict:
+    """Device time of a profiled run, by kernel and in all.  A kernel's
+    time sums every device entry its wrapper launches, each template
+    instantiation of ``<name>_kernel`` and, for B2 and B3, of their combine
+    pass ``<name>_combine_kernel``; its calls are its wrapper's launches in
+    the run (``launches``), so device_ms / calls is per wrapper call
+    however many passes it runs."""
     from torch.autograd import DeviceType
 
     def dev_us(evt):
@@ -1088,8 +1131,13 @@ def device_times(prof, wall: float) -> dict:
         busy_us += us
         top.append((us / 1e3, evt.count, evt.key[:90]))
         for name in KERNELS:  # "::" keeps decode_attention apart from paged_...
-            if f"::{name}_kernel" in evt.key:
-                per_kernel[name] = dict(calls=evt.count, device_ms=us / 1e3)
+            for part in ("kernel", "combine_kernel"):
+                if f"::{name}_{part}" in evt.key:
+                    row = per_kernel.setdefault(name, dict(calls=launches.get(name, 0),
+                                                           device_ms=0.0, device_ms_by_pass={}))
+                    row["device_ms"] += us / 1e3
+                    by_pass = row["device_ms_by_pass"]
+                    by_pass[part] = by_pass.get(part, 0.0) + us / 1e3
     # the profiler slows the host, so the busy share under it is a lower
     # bound; device_s against an unprofiled run's wall_s is the other view
     return dict(wall_s=wall, kernels=per_kernel, device_s=busy_us / 1e6,
@@ -1686,6 +1734,7 @@ def profile_tcmm(points, dev, n_points: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = read_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_tcmm_pipeline(points, dev, n_points)
@@ -1694,7 +1743,7 @@ def profile_tcmm(points, dev, n_points: int) -> dict:
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key[:60])
                    for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   reverse=True)[:10]
-    return dict(**device_times(prof, wall),
+    return dict(**device_times(prof, wall, launches_since(before)),
                 host_top_self_cpu_ms=[dict(ms=ms, calls=n, name=k) for ms, n, k in host])
 
 
@@ -1828,7 +1877,8 @@ def phase_mixtral_attention(dev, seed: int, flush: torch.Tensor) -> dict:
     """B1 and B2 (paged, kv_len 0..2048 with a 0), B3 (linear, kv_len 0..1024
     with a 0) and B4 (T in {32, 512, 2048}, window 0 and 128) at mixtral's
     heads (H=32, Hkv=8, D=128) against their plain versions, f32 and bf16,
-    under TOL; then bf16 times of B1, B2 and B4 at the serving lengths."""
+    under TOL; then bf16 times of B1, B2, B3 and B4 at the serving lengths,
+    B2 held to DECODE_SPEED_GATE (B3 at this width is a reading)."""
     d = MIXTRAL_HEADS["d"]
     rng = np.random.default_rng(seed + 21)
     wide = rng.integers(1, 2049, size=16)
@@ -1859,22 +1909,27 @@ def phase_mixtral_attention(dev, seed: int, flush: torch.Tensor) -> dict:
                   for dtype in (torch.float32, torch.bfloat16)]
     served = rng.integers(32, 513, size=16) + rng.integers(0, 33, size=16)
     timings = {"paged_main_path": time_kernels(dev, seed, 64, served, flush, d),
+               "dense_main_path": time_dense_decode(dev, seed, served, flush, MIXTRAL_HEADS),
                "flash_attention": flash_timings(seed, dev, flush, MIXTRAL_HEADS)}
     speed = flash_speed(timings["flash_attention"], MIXTRAL_HEADS)
     emit("mixtral_attention_kernels", paged=paged, decode_attention=dense,
          flash_attention=flash, flash_v_all_ones=flash_ones, timing=timings, flash_speed=speed,
          tol="TOL (f32 rtol=atol=1e-5; bf16 rtol 1.6e-2, atol 2e-3); kv_len 0 rows exactly 0 "
              "without q_pos; B2 and B3 also with the model's q_pos, idle rows 2-4; B4 v all "
-             f"ones as in flash_kernels; B4 bf16 <= {FLASH_SPEED_GATE}x SDPA at T=2048",
+             f"ones as in flash_kernels; B4 bf16 <= {FLASH_SPEED_GATE}x SDPA at T=2048; B2 "
+             f"bf16 <= {DECODE_SPEED_GATE}x SDPA on paged_main_path",
          note="H=32, Hkv=8, D=128 (mixtral-8x7b FULL); ms: CUDA events, median of 30, L2 "
               "flushed, bf16; paged_main_path: B=16, page 16, kv_len 32..544 in 64-page "
-              "tables, q_pos = kv_len - 1; flash_attention: B=1, causal, the 32 served "
-              "prompt lengths and T=2048")
+              "tables, q_pos = kv_len - 1; dense_main_path: B3 at the same lengths in a "
+              "1024-row cache, against masked SDPA (a reading); flash_attention: B=1, "
+              "causal, the 32 served prompt lengths and T=2048")
     bad = ([c for c in dense if not c["within_tol"] or not c["kv_len_0_exactly_zero"]]
            + [c for c in flash if not c["within_tol"]] + [o for o in flash_ones if not o["within"]])
     if bad:
         raise AssertionError(f"attention kernels at mixtral's heads differ: {bad}")
     check_flash_speed(speed, "mixtral heads", keys=("over_sdpa_t2048",))
+    check_decode_speed("B2", timings["paged_main_path"]["paged_decode_attention"],
+                       "D=128, the main path")
     return timings
 
 
@@ -2070,7 +2125,11 @@ def phase_mixtral_profile(model, params, cfg, seed: int, serve: dict) -> tuple:
     dropped = [sum(int((~c[2][3]).sum()) for c in decode[i:i + MIXTRAL_LAYERS])
                for i in range(0, len(decode), MIXTRAL_LAYERS)]
     gating = prof["kernels"].get("moe_gating")
+    b2 = prof["kernels"].get("paged_decode_attention")
     prof.update(
+        paged_decode_attention_ms_per_call=b2["device_ms"] / b2["calls"] if b2 else None,
+        paged_decode_attention_ms_per_decode_tick=(b2["device_ms"] / (b2["calls"] / MIXTRAL_LAYERS)
+                                                   if b2 else None),
         moe_gating_ms_per_call=gating["device_ms"] / gating["calls"] if gating else None,
         moe_gating_share_of_device_time=(gating["device_ms"] / 1e3 / prof["device_s"]
                                          if gating else None),

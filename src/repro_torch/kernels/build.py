@@ -3,10 +3,10 @@
 Every ``kernels/<package>/csrc/<name>.cu`` exposes one plain C entry
 point, ``<name>``, and is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library ``build/kernels/lib<name>.so`` at the repository root,
-then loaded with ``ctypes``.  A library is rebuilt when its source is
-newer.  Nothing is built when a module is imported: the first launch
-builds what it needs, and ``build_all`` builds every kernel, one
-``nvcc`` after another.  Each kernel package keeps the ``argtypes`` of
+then loaded with ``ctypes``.  A library is rebuilt when its source, or
+any header (``*.cuh``) beside it in ``csrc/``, is newer.  Nothing is
+built when a module is imported: the first launch builds what it needs,
+and ``build_all`` builds every kernel, one ``nvcc`` after another.  Each kernel package keeps the ``argtypes`` of
 its entry points beside its wrappers (``SIGNATURES`` in its ``ops.py``).
 A library may export a second C function beside its entry point
 (``load``'s ``symbol``): ``ssd_chunked_smem_bytes`` reports the dynamic
@@ -54,7 +54,11 @@ def _lib(name: str) -> Path:
 
 
 def _stale(lib: Path, src: Path) -> bool:
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    """Missing, or older than its source or a header its source may include."""
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *src.parent.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:

@@ -66,21 +66,29 @@ SIGNATURES = {
     ],
     "paged_decode_attention": [
         _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q k_pages v_pages
-        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # page_table kv_len q_pos out
+        _c.c_void_p, _c.c_void_p, _c.c_void_p,               # page_table kv_len q_pos
+        _c.c_void_p, _c.c_void_p,                            # scratch out
         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # dtype batch H Hkv D
-        _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # num_pages page n_pages window
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # num_pages page n_pages window splits
         _c.c_float, _c.c_void_p,                             # sm_scale stream
     ],
     "decode_attention": [
         _c.c_void_p, _c.c_void_p, _c.c_void_p,               # q k_cache v_cache
-        _c.c_void_p, _c.c_void_p, _c.c_void_p,               # kv_len q_pos (or NULL) out
+        _c.c_void_p, _c.c_void_p,                            # kv_len q_pos (or NULL)
+        _c.c_void_p, _c.c_void_p,                            # scratch out
         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # dtype batch S H Hkv
-        _c.c_int, _c.c_int, _c.c_float, _c.c_void_p,         # D window sm_scale stream
+        _c.c_int, _c.c_int, _c.c_int,                        # D window splits
+        _c.c_float, _c.c_void_p,                             # sm_scale stream
     ],
 }
 
 # dtype codes of the C entry points
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Key rows a block of the decode kernels takes (kSplitRows in
+# csrc/decode_split.cuh; the C entry points refuse another split count).
+SPLIT_ROWS = 64
+# head dims the decode kernels are compiled for
+DECODE_HEAD_DIMS = (16, 64, 128)
 
 
 def reset_launches() -> None:
@@ -140,6 +148,25 @@ def _check_cuda_operands(data, pools) -> None:
             raise ValueError("page pools and caches must be contiguous")
 
 
+def _check_decode_operands(q: torch.Tensor, pools) -> None:
+    """What the split decode kernels take beyond ``_check_cuda_operands``:
+    a head dim they are compiled for, and 16-byte aligned q and pools (each
+    lane loads 16 bytes of a row)."""
+    if q.shape[2] not in DECODE_HEAD_DIMS:
+        raise ValueError(f"decode kernels take head dims {DECODE_HEAD_DIMS}, got {q.shape[2]}")
+    for t in (q, *pools):
+        if t.data_ptr() % 16:
+            raise ValueError("q and the caches must start on a 16-byte boundary")
+
+
+def _split_scratch(q: torch.Tensor, rows: int) -> Tuple[torch.Tensor, int]:
+    """The f32 partials [B, H, splits, D + 2] of a split decode call, never
+    zeroed: a split the combine reads is always written first."""
+    splits = -(-rows // SPLIT_ROWS)
+    b, h, d = q.shape
+    return torch.empty((b, h, splits, d + 2), dtype=torch.float32, device=q.device), splits
+
+
 def _int32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
@@ -185,17 +212,20 @@ def decode_attention(
                                     sm_scale=sm_scale, q_pos=q_pos)
 
     _check_cuda_operands((q,), (k_cache, v_cache))
+    q = q.contiguous()
+    _check_decode_operands(q, (k_cache, v_cache))
     b, h, d = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    q = q.contiguous()
     lens = _int32(kv_len)
     out = torch.empty_like(q)
+    part, splits = _split_scratch(q, s)
     fn = build.load("decode_attention", SIGNATURES["decode_attention"])
     qp = None if q_pos is None else _int32(q_pos)
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        None if qp is None else qp.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b, s,
-        h, k_cache.shape[2], d, int(window), float(scale), _stream(dev),
+        None if qp is None else qp.data_ptr(), part.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], b, s, h, k_cache.shape[2], d, int(window), splits,
+        float(scale), _stream(dev),
     )
     _check_launch("decode_attention", err)
     LAUNCHES["decode_attention"] += 1
@@ -242,19 +272,21 @@ def paged_decode_attention(
         )
 
     _check_cuda_operands((q,), (k_pages, v_pages))
+    q = q.contiguous()
+    _check_decode_operands(q, (k_pages, v_pages))
     b, h, d = q.shape
     hkv = k_pages.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    q = q.contiguous()
     table, lens = _int32(page_table), _int32(kv_len)
     qp = None if q_pos is None else _int32(q_pos)
     out = torch.empty_like(q)
+    part, splits = _split_scratch(q, n_pages * page_size)
     fn = build.load("paged_decode_attention", SIGNATURES["paged_decode_attention"])
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-        lens.data_ptr(), None if qp is None else qp.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, h, hkv, d, num_pages, page_size, n_pages, int(window),
-        float(scale), _stream(dev),
+        lens.data_ptr(), None if qp is None else qp.data_ptr(), part.data_ptr(),
+        out.data_ptr(), _DTYPE_CODE[q.dtype], b, h, hkv, d, num_pages, page_size, n_pages,
+        int(window), splits, float(scale), _stream(dev),
     )
     _check_launch("paged_decode_attention", err)
     LAUNCHES["paged_decode_attention"] += 1

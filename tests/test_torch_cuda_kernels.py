@@ -151,6 +151,68 @@ def test_cuda_dense_decode_attention_matches_plain(cuda, dtype, s, window):
     assert torch.all(out[0] == 0)
 
 
+SPLIT = ops.SPLIT_ROWS  # key rows a block of B2 and B3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [8, 48])
+def test_cuda_split_decode_matches_plain(cuda, dtype, d, g, page):
+    """B2 and B3 at the edges of their key splits, over 128-page tables of
+    pages that do not divide the split: kv_len 0, split - 1, split,
+    split + 1, 2 * split + 1, 500 and the full table; a window of 130,
+    which leaves whole splits before it; and the model's q_pos, where row
+    5's query sits 300 past its cache end, so with the window it keeps no
+    key and attends uniformly to every row of its table (row 0, kv_len 0,
+    does so with any window).  Each call against its plain version, two
+    calls bit-equal, one launch counted a call, and B3 over the gathered
+    cache against B2."""
+    n_pages = 128
+    kv_len = [0, SPLIT - 1, SPLIT, SPLIT + 1, n_pages * page, 500, 2 * SPLIT + 1, 1]
+    q, kp, vp, table, kl = decode_case(30 + g, 8, 2, g, d, page, n_pages, kv_len)
+    q_pos = np.maximum(np.asarray(kv_len) - 1, 0).astype(np.int32)
+    q_pos[5] = kv_len[5] - 1 + 300
+    tq, tkp, tvp, tt, tkl, tqp = [t.to(cuda) for t in as_torch(q, kp, vp, table, kl, q_pos)]
+    tq, tkp, tvp = (t.to(dtype) for t in (tq, tkp, tvp))
+    kc = ref.gather_pages(tkp, tt).contiguous()
+    vc = ref.gather_pages(tvp, tt).contiguous()
+    for qp, window in ((None, 0), (None, 130), (tqp, 0), (tqp, 130)):
+        before = dict(ops.LAUNCHES)
+        paged = ops.paged_decode_attention(tq, tkp, tvp, tt, tkl, window=window, q_pos=qp)
+        again = ops.paged_decode_attention(tq, tkp, tvp, tt, tkl, window=window, q_pos=qp)
+        dense = ops.decode_attention(tq, kc, vc, tkl, window=window, q_pos=qp)
+        plain = ref.paged_decode_attention_ref(tq, tkp, tvp, tt, tkl, window=window, q_pos=qp)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["paged_decode_attention"] == before["paged_decode_attention"] + 2
+        assert ops.LAUNCHES["decode_attention"] == before["decode_attention"] + 1
+        torch.testing.assert_close(paged.float(), plain.float(), **CUDA_TOL[dtype])
+        torch.testing.assert_close(dense.float(), plain.float(), **CUDA_TOL[dtype])
+        torch.testing.assert_close(dense.float(), paged.float(), **CUDA_TOL[dtype])
+        assert torch.equal(paged, again), "two calls on the same inputs differ"
+        if qp is None:
+            assert torch.all(paged[0] == 0) and torch.all(dense[0] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_split_decode_refuses_what_it_cannot_take(cuda):
+    """A head dim the kernels are not compiled for, and q or a cache that
+    does not start on a 16-byte boundary (each lane loads 16 bytes)."""
+    q, kp, vp, table, kl = (t.to(cuda) for t in as_torch(*decode_case(40, 2, 2, 2, 64, 16, 2,
+                                                                        [5, 20])))
+    kc = ref.gather_pages(kp, table).contiguous()
+    with pytest.raises(ValueError, match="head dims"):
+        ops.paged_decode_attention(q[..., :48], kp[..., :48].contiguous(),
+                                   vp[..., :48].contiguous(), table, kl)
+    with pytest.raises(ValueError, match="16-byte"):
+        shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)  # 4 bytes in
+        ops.paged_decode_attention(shifted, kp, vp, table, kl)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.decode_attention(q, torch.empty(kc.numel() + 1, device=cuda)[1:].view(kc.shape),
+                             kc, kl)
+
+
 FLASH_CASES = [  # (t, s, causal, window, q_offset)
     (1, 1, True, 0, 0), (32, 32, True, 0, 0), (200, 200, True, 0, 0), (512, 512, True, 128, 0),
     (64, 320, True, 0, 256), (16, 64, True, 32, 128), (200, 77, False, 0, 0)]

@@ -226,6 +226,44 @@ def test_missing_compiler_raises_instead_of_falling_back(monkeypatch, tmp_path):
     assert build._loaded == {}
 
 
+def test_library_is_stale_when_a_header_beside_its_source_is_newer(tmp_path):
+    """B2 and B3 share csrc/decode_split.cuh: touching a header beside a
+    .cu makes its library stale, as touching the .cu does.  Builds nothing."""
+    import os
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src, header, lib = csrc / "k.cu", csrc / "body.cuh", tmp_path / "libk.so"
+    for path, when in ((src, 100), (header, 100), (lib, 200)):
+        path.write_text("")
+        os.utime(path, (when, when))
+    assert not build._stale(lib, src)
+    os.utime(header, (300, 300))
+    assert build._stale(lib, src)
+    os.utime(lib, (400, 400))
+    assert not build._stale(lib, src)
+    os.utime(src, (500, 500))
+    assert build._stale(lib, src)
+    lib.unlink()
+    assert build._stale(lib, src)
+
+
+@pytest.mark.parametrize("name", ["paged_decode_attention", "decode_attention"])
+def test_signatures_and_split_rows_match_the_c_sources(name):
+    """The ctypes argtypes of a decode entry point have as many entries as
+    its C declaration has parameters (a wrong count would pass garbage on
+    the card), and ``ops.SPLIT_ROWS``, which sizes the scratch, is the
+    header's ``kSplitRows``."""
+    import re
+
+    csrc = build.KERNELS_DIR / "decode_attention" / "csrc"
+    source = (csrc / f"{name}.cu").read_text()
+    decl = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", source).group(1)
+    assert len(ops.SIGNATURES[name]) == decl.count(",") + 1
+    header = (csrc / "decode_split.cuh").read_text()
+    assert int(re.search(r"constexpr int kSplitRows = (\d+);", header).group(1)) == ops.SPLIT_ROWS
+
+
 def test_plain_path_counts_no_launch():
     ops.reset_launches()
     ops.paged_decode_attention(*as_torch(*decode_case(5, 2, 2, 2, 8, 4, 2, [3, 8])))
