@@ -36,11 +36,16 @@ Phases, one JSON line each:
            window 0 and 128, and against B2 on a paged copy of the cache;
            then bf16 times at the serving lengths.
   ssd_kernels
-           the SSD scan kernel against its plain version at mamba2-370m
-           FULL heads (H=32, P=64, N=128, chunk 64), B in {1, 4}, T=2048,
-           B and C in bf16 and f32, with and without an initial state;
-           then CUDA-event times of kernel and plain version beside the
-           bound, at T=2048 and at the mamba_serve phase's prompt lengths.
+           the SSD scan kernel (three passes: chunk, state, output) against
+           its plain version at mamba2-370m FULL heads (H=32, P=64, N=128,
+           chunk 64), B in {1, 4}, T=2048, B and C in bf16 and f32, with and
+           without an initial state, and at the main path's own shapes;
+           each version's error against an f64 recurrence, the kernel's at
+           most the plain version's in every case; then CUDA-event times
+           of kernel and plain version beside the bound, at T=2048 and at
+           the mamba_serve phase's prompt lengths, with the share of the
+           bound the kernel reaches held to SSD_SPEED_GATES; the ptxas
+           report and dynamic shared memory of each pass.
   smoke    llama3.2-1b SMOKE at f32: prefill + ragged decode logits of the
            kernel path on the card against the plain path on the CPU, on a
            paged and on a linear cache, and the paged and dense batchers'
@@ -159,6 +164,7 @@ import functools
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -315,7 +321,7 @@ def phase_build() -> tuple:
     emit("build", seconds=build_s, nvidia_smi=smi, ptxas=ptxas,
          device=torch.cuda.get_device_name(0), torch=torch.__version__,
          cuda=torch.version.cuda)
-    return smi, ptxas
+    return smi, reports
 
 
 # --- phase 2 -----------------------------------------------------------------
@@ -1109,10 +1115,12 @@ def launches_since(before: dict) -> dict:
 def device_times(prof, wall: float, launches: dict) -> dict:
     """Device time of a profiled run, by kernel and in all.  A kernel's
     time sums every device entry its wrapper launches, each template
-    instantiation of ``<name>_kernel`` and, for B2 and B3, of their combine
-    pass ``<name>_combine_kernel``; its calls are its wrapper's launches in
-    the run (``launches``), so device_ms / calls is per wrapper call
-    however many passes it runs."""
+    instantiation of ``<name>_kernel`` and of every further pass
+    ``<name>_<pass>_kernel`` (B2's and B3's ``combine_kernel``, B6's
+    ``chunk_kernel``, ``state_kernel`` and ``output_kernel``), with each
+    pass's time under ``device_ms_by_pass``; its calls are its wrapper's
+    launches in the run (``launches``), so device_ms / calls is per wrapper
+    call however many passes it runs."""
     from torch.autograd import DeviceType
 
     def dev_us(evt):
@@ -1131,13 +1139,14 @@ def device_times(prof, wall: float, launches: dict) -> dict:
         busy_us += us
         top.append((us / 1e3, evt.count, evt.key[:90]))
         for name in KERNELS:  # "::" keeps decode_attention apart from paged_...
-            for part in ("kernel", "combine_kernel"):
-                if f"::{name}_{part}" in evt.key:
-                    row = per_kernel.setdefault(name, dict(calls=launches.get(name, 0),
-                                                           device_ms=0.0, device_ms_by_pass={}))
-                    row["device_ms"] += us / 1e3
-                    by_pass = row["device_ms_by_pass"]
-                    by_pass[part] = by_pass.get(part, 0.0) + us / 1e3
+            found = re.search(rf"::{name}_((?:[a-z]+_)?kernel)\b", evt.key)
+            if found:
+                part = found.group(1)
+                row = per_kernel.setdefault(name, dict(calls=launches.get(name, 0),
+                                                       device_ms=0.0, device_ms_by_pass={}))
+                row["device_ms"] += us / 1e3
+                by_pass = row["device_ms_by_pass"]
+                by_pass[part] = by_pass.get(part, 0.0) + us / 1e3
     # the profiler slows the host, so the busy share under it is a lower
     # bound; device_s against an unprofiled run's wall_s is the other view
     return dict(wall_s=wall, kernels=per_kernel, device_s=busy_us / 1e6,
@@ -1179,6 +1188,12 @@ SSD_HEADS = dict(h=32, p=64, n=128, chunk=64)  # mamba2-370m FULL
 # hundreds here).  Limits on max|err| as fractions of max|plain output|,
 # about 2x the largest readings, 1.23e-5 (y) and 2.66e-6 (state) (PERF.md).
 SSD_TOL = dict(y=2.5e-5, state=5.5e-6)
+# B6's share of its bound (bound_ms / kernel_ms), at least: on the main
+# path (mean per launch over the served prompts) and at B=1, T=2048 with an
+# initial state.  About half the readings predicted for the chunk-parallel
+# passes (PERF.md): a few-us kernel behind an L2 flush moves 2x between
+# runs.
+SSD_SPEED_GATES = dict(main_path_per_launch=0.10, b1_t2048=0.15)
 # Kernel path against plain path over 2048 prompt positions, as fractions
 # of the plain logits' RMS; greedy tokens must agree wherever the plain
 # top-two margin exceeds 2 max|diff|, and such positions must be at least
@@ -1250,7 +1265,25 @@ def prompt_lengths(seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(32, 513, size=32)
 
 
-def phase_ssd_kernels(dev, seed: int, flush: torch.Tensor, ptxas: list) -> dict:
+def ssd_ptxas_by_pass(report: str) -> dict:
+    """The register and spill lines of nvcc's -Xptxas -v report, by pass
+    and instantiation (``chunk/bf16``, ``state``, ...)."""
+    by_pass, key = {}, None
+    for line in report.splitlines():
+        fn = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if fn:
+            found = re.search(r"ssd_chunked_([a-z]+)_kernel", fn.group(1))
+            kind = ("/bf16" if "bfloat16" in fn.group(1)
+                    else "/f32" if "IfE" in fn.group(1) else "")
+            key = found.group(1) + kind if found else None
+        elif key and ("registers" in line or "spill" in line):
+            lines = by_pass.setdefault(key, [])
+            if line.strip() not in lines:
+                lines.append(line.strip())
+    return by_pass
+
+
+def phase_ssd_kernels(dev, seed: int, flush: torch.Tensor, report: str) -> dict:
     q = SSD_HEADS["chunk"]
     before = read_launches()["ssd_chunked"]
     cases = []
@@ -1306,22 +1339,35 @@ def phase_ssd_kernels(dev, seed: int, flush: torch.Tensor, ptxas: list) -> dict:
     timings = {"b1_t2048": timing(1, 2048, True), "b4_t2048": timing(4, 2048, True),
                "main_path_per_launch": main_path,
                "main_path_by_t": {str(t): r for t, r in per_t.items()}}
+    speed = {k: dict(bound_over_kernel=timings[k]["bound_ms"] / timings[k]["kernel_ms"],
+                     at_least=limit) for k, limit in SSD_SPEED_GATES.items()}
     emit("ssd_kernels", cases=cases, tol=f"max|err| <= {SSD_TOL['y']} max|y| (y), "
          f"{SSD_TOL['state']} max|state| (state)",
-         launches_parity_and_timing=read_launches()["ssd_chunked"] - before, ptxas=ptxas,
-         dynamic_smem_bytes_per_block=ssd_scan.ops.smem_bytes(
+         launches_parity_and_timing=read_launches()["ssd_chunked"] - before,
+         ptxas_by_pass=ssd_ptxas_by_pass(report),
+         dynamic_smem_bytes_by_pass=ssd_scan.ops.smem_bytes(
              SSD_HEADS["p"], SSD_HEADS["n"], SSD_HEADS["chunk"]),
-         timing=timings,
+         timing=timings, speed_gates=speed,
+         f64_gate="in every case y_kernel_vs_f64 <= y_plain_vs_f64 and "
+                  "state_kernel_vs_f64 <= state_plain_vs_f64",
          note="ms: CUDA events, median of 30, L2 flushed; H=32 P=64 N=128 chunk 64, bf16 "
               "B/C; b*_t2048: N(0,1) initial state; main_path: all-zero initial state, "
               "mean per launch over the mamba_serve prompts; bound: bytes at 3.35 TB/s, "
               "f32 operations at 67 TFLOP/s; library: none (no single PyTorch call "
-              "computes the scan)")
+              "computes the scan); *_vs_f64: max|err| over max|exact|")
     bad = [c for c in cases if not c["finite"]
            or c["y_max_abs_err"] > SSD_TOL["y"] * c["y_max_abs"]
            or c["state_max_abs_err"] > SSD_TOL["state"] * c["state_max_abs"]]
     if bad:
         raise AssertionError(f"ssd_chunked differs from its plain version: {bad}")
+    bad = [c for c in cases if c["y_kernel_vs_f64"] > c["y_plain_vs_f64"]
+           or c["state_kernel_vs_f64"] > c["state_plain_vs_f64"]]
+    if bad:
+        raise AssertionError(f"ssd_chunked further from the f64 scan than its plain "
+                             f"version: {bad}")
+    slow = {k: g for k, g in speed.items() if g["bound_over_kernel"] < g["at_least"]}
+    if slow:
+        raise AssertionError(f"ssd_chunked below its share of the bound: {slow}")
     return dict(kernel_ms=main_path["kernel_ms"], plain_ms=main_path["plain_ms"],
                 bound_ms=main_path["bound_ms"], bound_by=main_path["bound_by"],
                 library_ms=None,
@@ -2298,12 +2344,13 @@ def main() -> int:
     dev = torch.device("cuda")
 
     started = time.perf_counter()
-    smi, ptxas = phase_build()
+    smi, reports = phase_build()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     rows = phase_kernels(dev, args.seed, flush)
     rows["flash_attention"] = phase_flash_kernels(dev, args.seed, flush)
     rows["decode_attention"] = phase_dense_decode_kernels(dev, args.seed, flush)
-    rows["ssd_chunked"] = phase_ssd_kernels(dev, args.seed, flush, ptxas.get("ssd_chunked"))
+    rows["ssd_chunked"] = phase_ssd_kernels(dev, args.seed, flush,
+                                            reports.get("ssd_chunked", ""))
     del flush
     phase_smoke(dev, args.seed)
 

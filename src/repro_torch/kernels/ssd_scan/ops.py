@@ -13,18 +13,22 @@ The contract is the reference wrapper's
 fold gives (the kernel starts its scan from that state; equal in exact
 arithmetic).  On CUDA the kernel takes x, a and the state in float32 and
 B, C in float32 or bfloat16, all contiguous; anything else raises here.
-The kernel itself refuses shapes it cannot tile (chunk, P and N must be
-multiples of 4, and one block's tiles must fit its shared memory), and
-the wrapper raises on that refusal too.
+The operands must also start on 16-byte boundaries (the kernel reads them
+16 bytes at a time).  The kernel itself refuses shapes it cannot tile
+(chunk, P and N must be multiples of 4, and each pass's tiles must fit
+one block's shared memory), and the wrapper raises on that refusal too.
 
-``LAUNCHES`` counts kernel launches.  Only a launch on the card counts;
-the plain CPU path does not.
+The kernel runs as three passes (chunk, state, output) over an f32
+scratch that the wrapper allocates here (``workspace_floats``).
+``LAUNCHES`` counts wrapper calls that launched the kernel, one per call
+however many passes it ran.  Only a launch on the card counts; the plain
+CPU path does not.
 """
 
 from __future__ import annotations
 
 import ctypes as _c
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,11 +42,15 @@ SIGNATURES = {
     "ssd_chunked": [
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # x a B C
         _c.c_void_p, _c.c_void_p, _c.c_void_p,               # initial_state y final_state
+        _c.c_void_p, _c.c_longlong,                          # scratch, its f32 elements
         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # bc_dtype batch T H
         _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,           # P N chunk stream
     ],
-    "ssd_chunked_smem_bytes": [_c.c_int, _c.c_int, _c.c_int],  # P N chunk
+    "ssd_chunked_smem_bytes": [_c.c_int] * 5,  # pass bc_dtype P N chunk
 }
+
+# the kernel's passes, in launch order, by their index at the C entry points
+PASSES = ("chunk", "state", "output")
 
 # dtype codes of B and C at the C entry point
 _BC_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,11 +61,22 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def smem_bytes(p: int, n: int, chunk: int) -> int:
-    """Dynamic shared memory one block of the kernel takes, from the
-    kernel's own library (built first if need be: needs nvcc)."""
-    return build.load("ssd_chunked", SIGNATURES["ssd_chunked_smem_bytes"],
-                      symbol="ssd_chunked_smem_bytes")(p, n, chunk)
+def smem_bytes(p: int, n: int, chunk: int,
+               bc_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    """Dynamic shared memory one block of each pass takes, by pass, with B
+    and C in ``bc_dtype``, from the kernel's own library (built first if
+    need be: needs nvcc)."""
+    fn = build.load("ssd_chunked", SIGNATURES["ssd_chunked_smem_bytes"],
+                    symbol="ssd_chunked_smem_bytes")
+    return {name: fn(i, _BC_DTYPE_CODE[bc_dtype], p, n, chunk)
+            for i, name in enumerate(PASSES)}
+
+
+def workspace_floats(b: int, t: int, h: int, p: int, n: int, chunk: int) -> int:
+    """f32 elements of the kernel's scratch, laid out as the C source
+    reads it: the state entering each chunk [B, H, nc, N, P], C B^T
+    [B, nc, chunk, chunk] and each chunk's total decay [B, H, nc]."""
+    return b * (t // chunk) * (h * n * p + chunk * chunk + h)
 
 
 def _check_shapes(x, a, B, C, chunk, initial_state) -> None:
@@ -91,6 +110,8 @@ def _check_cuda_operands(x, a, B, C, initial_state) -> None:
                     ("initial_state", initial_state)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def ssd_chunked(
@@ -118,11 +139,14 @@ def ssd_chunked(
     n = B.shape[2]
     y = torch.empty_like(x)
     final = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
+    # never zeroed: each pass writes what the next one reads
+    work = torch.empty(workspace_floats(b, t, h, p, n, chunk), dtype=torch.float32, device=dev)
     fn = build.load("ssd_chunked", SIGNATURES["ssd_chunked"])
     err = fn(
         x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
         initial_state.data_ptr() if initial_state is not None else None,
-        y.data_ptr(), final.data_ptr(), _BC_DTYPE_CODE[B.dtype], b, t, h, p, n, chunk,
+        y.data_ptr(), final.data_ptr(), work.data_ptr(), work.numel(),
+        _BC_DTYPE_CODE[B.dtype], b, t, h, p, n, chunk,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from repro_torch.config import get_arch  # noqa: E402
 from repro_torch.kernels import flash_attention, moe_gating, ssd_scan, tcmm_assign  # noqa: E402
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
@@ -457,10 +458,29 @@ def test_cuda_bf16_unembed_sums_in_f32(cuda):
 SSD_TOL = dict(rtol=1e-4, atol=1e-3)
 
 
+# (B, T, H, P, N, chunk).  The kernel's passes split a head's state into
+# slices of 32 rows of N, its chunk into C B^T tiles of 16 rows and output
+# tiles of 32 rows and 32 columns of P: "split_edges" leaves a slice of 16
+# rows (N = 80), a tile of 16 columns (P = 48) and a ragged last block of
+# the state pass (N P / 4 = 960 float4s), over three chunks; "short_chunk"
+# has one output tile of 32 rows, a column tile of 4 (P = 36) and a slice
+# of 12 (N = 44); "odd_chunk" ragged row tiles of 4 (Q = 36) and a single
+# column tile of 20 (P = 20).
+SSD_SHAPES = {
+    "full_widths": (2, 256, 4, 64, 128, 64),
+    "smoke_widths": (1, 48, 8, 16, 16, 16),
+    "full_one_chunk": (1, 64, 32, 64, 128, 64),
+    "full_t2048": (1, 2048, 32, 64, 128, 64),
+    "full_b4": (4, 256, 32, 64, 128, 64),
+    "split_edges": (1, 192, 3, 48, 80, 64),
+    "short_chunk": (2, 96, 2, 36, 44, 32),
+    "odd_chunk": (1, 108, 3, 20, 24, 36),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 256, 4, 64, 128, 64), (1, 48, 8, 16, 16, 16)],
-                         ids=["full_widths", "smoke_widths"])
+@pytest.mark.parametrize("shape", list(SSD_SHAPES.values()), ids=list(SSD_SHAPES))
 def test_cuda_ssd_chunked_matches_plain(cuda, bc_dtype, shape):
     b, t, h, p, n, chunk = shape
     rng = np.random.default_rng(9)
@@ -482,13 +502,18 @@ def test_cuda_ssd_chunked_matches_plain(cuda, bc_dtype, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(12, 8, 8, 6), (256, 64, 128, 256)],
+@pytest.mark.parametrize("shape", [(12, 8, 8, 6), (64, 64, 1024, 64)],
                          ids=["chunk_not_multiple_of_4", "tiles_beyond_shared_memory"])
 def test_cuda_ssd_chunked_refuses_shapes_it_cannot_tile(cuda, shape):
     """Shapes the kernel cannot take are refused without a launch, and the
-    wrapper raises instead of running anything else."""
+    wrapper raises instead of running anything else.  The output pass
+    stages C and the state for all N rows: at N = 1024 (f32 B and C) that
+    is more than the 227 KB a block may have."""
     t, p, n, chunk = shape
-    assert ssd_scan.ops.smem_bytes(64, 128, 64) <= 232448  # FULL fits one block
+    smem = ssd_scan.ops.smem_bytes(64, 128, 64)  # bf16 B and C, as served
+    assert set(smem) == set(ssd_scan.ops.PASSES)
+    assert max(smem.values()) <= 232448 // 4  # FULL: four blocks of each pass an SM
+    assert ssd_scan.ops.smem_bytes(p, n, chunk, torch.float32)["output"] > 232448 or chunk % 4
     x = torch.zeros((1, t, 2, p), device=cuda)
     a = torch.ones((1, t, 2), device=cuda)
     bc = torch.zeros((1, t, n), device=cuda)
@@ -496,6 +521,109 @@ def test_cuda_ssd_chunked_refuses_shapes_it_cannot_tile(cuda, shape):
     with pytest.raises(RuntimeError, match="cannot tile"):
         ssd_scan.ssd_chunked(x, a, bc, bc, chunk)
     assert ssd_scan.LAUNCHES["ssd_chunked"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunked_refuses_too_little_scratch(cuda):
+    """The C entry point refuses scratch smaller than its three passes need
+    (cudaErrorInvalidValue, nothing launched), so a wrapper that sized it
+    wrongly raises instead of writing past it."""
+    from repro_torch.kernels import build
+
+    b, t, h, p, n, chunk = 1, 128, 2, 16, 16, 64
+    x = torch.zeros((b, t, h, p), device=cuda)
+    a = torch.ones((b, t, h), device=cuda)
+    bc = torch.zeros((b, t, n), device=cuda)
+    y = torch.full_like(x, 7.0)
+    final = torch.full((b, h, n, p), 7.0, device=cuda)
+    need = ssd_scan.ops.workspace_floats(b, t, h, p, n, chunk)
+    work = torch.empty(need, device=cuda)
+    fn = build.load("ssd_chunked", ssd_scan.ops.SIGNATURES["ssd_chunked"])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    args = (x.data_ptr(), a.data_ptr(), bc.data_ptr(), bc.data_ptr(), None, y.data_ptr(),
+            final.data_ptr(), work.data_ptr())
+    rest = (0, b, t, h, p, n, chunk, stream)
+    assert fn(*args, need - 1, *rest) == 1
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all()) and bool((final == 7.0).all())
+    assert fn(*args, need, *rest) == 0
+    torch.cuda.synchronize()
+    assert bool((y == 0).all()) and bool((final == 0).all())
+
+
+def ssd_model_inputs(seed, b, t, h, p, n, state):
+    """Scan inputs as a mamba2-370m layer makes them, with the init's decay
+    rates: dt = softplus(N(0,1)), a = exp(-dt * linspace(1, 16, H)) (A_log up
+    to log 16), x = N(0,1) * dt, B and C N(0,1), an N(0,1) initial state."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((b, t, h))))
+    a = np.exp(-dt * np.linspace(1.0, 16.0, h)).astype(np.float32)
+    x = (rng.standard_normal((b, t, h, p)) * dt[..., None]).astype(np.float32)
+    bm = rng.standard_normal((b, t, n)).astype(np.float32)
+    cm = rng.standard_normal((b, t, n)).astype(np.float32)
+    s0 = rng.standard_normal((b, h, n, p)).astype(np.float32) if state else None
+    return x, a, bm, cm, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,state", [(1, 64, False), (1, 64, True), (1, 2048, True),
+                                       (4, 512, False)])
+def test_cuda_ssd_chunked_fast_decay_against_plain_and_f64(cuda, bc_dtype, b, t, state):
+    """FULL widths with the init's fastest heads, whose |cum| reaches the
+    hundreds within a chunk: the kernel within chip_smoke.py's SSD_TOL of
+    its plain version (fractions of the largest output), and no further
+    from the f64 recurrence than the plain version, which sums the log
+    decays in f32."""
+    h, p, n, chunk = 32, 64, 128, 64
+    x, a, bm, cm, s0 = ssd_model_inputs(11, b, t, h, p, n, state)
+    assert -np.log(a[:, :chunk, -1]).sum(axis=1).min() > 100
+    tx, ta, tb, tc = [v.to(cuda) for v in as_torch(x, a, bm, cm)]
+    tb, tc = tb.to(bc_dtype), tc.to(bc_dtype)
+    ts = torch.from_numpy(s0).to(cuda) if state else None
+    y, s = ssd_scan.ssd_chunked(tx, ta, tb, tc, chunk, ts)
+    y_ref, s_ref = ssd_scan.ssd_chunked_ref(tx, ta, tb, tc, chunk, ts)
+    torch.cuda.synchronize()
+    tol = chip_smoke.SSD_TOL
+    assert (y - y_ref).abs().max() <= tol["y"] * y_ref.abs().max()
+    assert (s - s_ref).abs().max() <= tol["state"] * s_ref.abs().max()
+    y64, s64 = chip_smoke.ssd_f64(tx, ta, tb, tc, ts)
+    for got, ref_, exact in ((y, y_ref, y64), (s, s_ref, s64)):
+        assert (got.double() - exact).abs().max() <= (ref_.double() - exact).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_chunked_padded_tail_leaves_the_scan_as_it_was(cuda, bc_dtype):
+    """The model pads a prompt to a multiple of the chunk with inert steps
+    (a = 1, x = B = C = 0).  A padded chunk leaves y's first T rows and the
+    final state bit for bit as the unpadded call gives them; a prompt padded
+    within its last chunk agrees with the sequential oracle on its own
+    steps."""
+    h, p, n, chunk = 4, 64, 128, 64
+    x, a, bm, cm, s0 = ssd_model_inputs(12, 1, 128, h, p, n, True)
+    tx, ta, tb, tc, ts = [v.to(cuda) for v in as_torch(x, a, bm, cm, s0)]
+    tb, tc = tb.to(bc_dtype), tc.to(bc_dtype)
+
+    def padded(steps, pad):
+        return (torch.nn.functional.pad(tx[:, :steps], (0, 0, 0, 0, 0, pad)),
+                torch.nn.functional.pad(ta[:, :steps], (0, 0, 0, pad), value=1.0),
+                torch.nn.functional.pad(tb[:, :steps], (0, 0, 0, pad)),
+                torch.nn.functional.pad(tc[:, :steps], (0, 0, 0, pad)))
+
+    y, s = ssd_scan.ssd_chunked(tx, ta, tb, tc, chunk, ts)
+    y_pad, s_pad = ssd_scan.ssd_chunked(*padded(128, 64), chunk, ts)
+    torch.cuda.synchronize()
+    assert torch.equal(y_pad[:, :128], y) and torch.equal(s_pad, s)
+    assert bool((y_pad[:, 128:] == 0).all())
+
+    y_pad, s_pad = ssd_scan.ssd_chunked(*padded(100, 28), chunk, ts)
+    y_seq, s_seq = ssd_scan.ssd_sequential_ref(tx[:, :100], ta[:, :100], tb[:, :100],
+                                               tc[:, :100], ts)
+    torch.cuda.synchronize()
+    tol = chip_smoke.SSD_TOL
+    assert (y_pad[:, :100] - y_seq).abs().max() <= tol["y"] * y_seq.abs().max()
+    assert (s_pad - s_seq).abs().max() <= tol["state"] * s_seq.abs().max()
 
 
 # B7 and its plain version sum d2 in one fixed order with one rounding per
